@@ -48,12 +48,10 @@
 // main.rs:89-93), and we additionally credit transient mid-descent dips
 // of `current` that the reference's "last strictly-improving" descent
 // result forgets (ref local_search.rs:326-328).  Evaluated-but-rejected
-// window candidates are NOT credited: the TPU side's probe only sees
-// solutions its engine holds (elite-archive inserts at chunk boundaries),
-// so crediting the baseline's rejected candidates would compare a
-// best-of-everything-scored envelope against a best-solution-held
-// trajectory (see BENCH_NOTES.md "Quality-probe methodology (probe
-// asymmetry)" for the full rules and the measured chunk-boundary lag).
+// window candidates are NOT credited: the device side's probe only sees
+// solutions its engine holds (elite-archive inserts), so crediting the
+// baseline's rejected candidates would compare a best-of-everything-scored
+// envelope against a best-solution-held trajectory.
 //
 // Build: g++ -O3 -march=native -o baseline_full baseline_full.cc
 // Run:   ./baseline_full nqueens <n> <budgets,csv,seconds> [seed]

@@ -2,7 +2,7 @@
 (ref examples/diagram/benches/geom_benchmark.rs:6-27: 36 diagonal boxes,
 benches OrthogonalVisibilityGraph::new; the reference never stored a
 result).  Times the C++ sweep-line visibility-graph build end-to-end
-(host-side native code, no TPU involved) and prints ms per build.
+(host-side native code, no accelerator involved) and prints ms per build.
 """
 
 import os

@@ -1,15 +1,13 @@
-"""QAP at MXU scale — prove or break "latency-limited at small shapes"
-(VERDICT r4 directive 4).
+"""QAP at matmul scale: moves/s and roofline point against n and P.
 
-The per-domain roofline table (bench/domains_tpu.py) recorded QAP only at
-n=256, P=64: 0.21% f32 MFU, explained as latency-limited.  That claim is
-testable: at n=1024 the all-pairs swap neighborhood is one [1024,1024] x
-[1024,1024] MXU matmul per iteration per lane (~2.1 GFLOP), so if the
-small-shape explanation is right, MFU must rise steeply with n and P.
-This script records moves/s + the XLA-accounted roofline point for
-(n, P) in QAP_ARMS (default 256x64 anchor, 1024x16, 1024x64, 2048x16).
+At n=1024 the all-pairs swap neighborhood is one [1024,1024] x [1024,1024]
+matmul per iteration per lane (~2.1 GFLOP); if small shapes are
+latency-limited, the roofline share must rise steeply with n and P.
+This script records moves/s + the XLA-accounted roofline point (against
+the device's entry in utils/roofline.PEAKS) for (n, P) in QAP_ARMS
+(default 256x64 anchor, 1024x16, 1024x64, 2048x16).
 
-Run (TPU): python -u bench/qap_scale.py
+Run (GPU): python -u bench/qap_scale.py
 Env: QAP_ARMS csv of nxP (e.g. "1024x64,2048x16"), QAP_ROUNDS (6).
 """
 
@@ -57,9 +55,10 @@ def arm(n, pop, chunk=2, compact=False, incremental=False):
         f"ls_iters={stats['ls_iterations']} moves/s={moves / wall:.3g}",
         flush=True,
     )
-    from constraint_solver_tpu.utils.roofline import format_roofline
+    from constraint_solver_tpu.utils.roofline import format_roofline, peaks_for
 
-    print(f"{label}: {format_roofline(solver.roofline(chunk=chunk))}",
+    peaks = peaks_for(jax.devices()[0].device_kind)
+    print(f"{label}: {format_roofline(solver.roofline(peaks, chunk=chunk))}",
           flush=True)
 
 

@@ -1,10 +1,9 @@
 """Per-component isolation bench of the scheduling dense-block LS iteration
-(VERDICT round-2 item 3: where do the 365d x 20e seconds go?).
+(where do the 365d x 20e seconds go?).
 
-Variants (vmapped fori_loop of K iterations per dispatch, like
-bench/ls_isolation.py):
+Variants (vmapped fori_loop of K iterations per dispatch):
 
-  RTT        — an (almost) empty dispatch + host read: the tunnel/dispatch
+  RTT        — an (almost) empty dispatch + host read: the dispatch
                overhead every chunk pays regardless of compute
   V0 change  — the D x E ChangeDay delta block only (n_off=0, n_rand=0)
   V0d +diag  — + the n_off=4 swap diagonals (the default dense block)
@@ -123,7 +122,7 @@ def main():
     def v2x_filter(state, score, key):
         """V2 with the full [W, T] exact filter in place of the single
         winner check — isolates the filter-matrix share of the V3x
-        residual (VERDICT r3 directive 5)."""
+        residual."""
         fp0 = prob.fingerprint(state)
         t0 = TabuRing.create(256, 1_000)
 
@@ -218,13 +217,13 @@ def main():
     for name, fn, args, iters in variants:
         wall, out = timeit(fn, *args)
         ms_per_iter = 1000.0 * wall / iters
-        tput = P * width * iters / wall
+        rate = P * width * iters / wall
         extra = ""
         if name.startswith("V3"):
             extra = f" exhausted={int(jnp.sum(out[2]))}/{P * K}"
         print(
             f"{name:20s} {wall * 1000:8.1f} ms / {iters} iters = "
-            f"{ms_per_iter:6.2f} ms/iter  ({tput:.3g} moves/s){extra}",
+            f"{ms_per_iter:6.2f} ms/iter  ({rate:.3g} moves/s){extra}",
             flush=True,
         )
 

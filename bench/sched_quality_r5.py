@@ -1,23 +1,21 @@
-"""Round-5 quality A/Bs on scheduling-365d-20e (VERDICT r4 directives 2+3).
+"""Quality A/Bs on scheduling-365d-20e: cull rank, exchange cadence, noisy
+dense selection.
 
 Arms (SWEEP_SET csv; default all), each raced at 2.3/10/60 s with 3
 fresh-state repeats using the on-device per-round best trace (bench.py
-tpu_best_at_walls — no probe lag, honest exchange cadence):
+device_best_at_walls — no probe lag, honest exchange cadence):
 
 - lex          production quality mode, lexicographic cull rank (new default)
 - hard         same mode with the round-4 hard-channel cull rank
-- exch1        lex + exchange/cull every ROUND (the round-4 fine-probe
-               harness accidentally ran this cadence below round 16; if the
-               early race wants it, it becomes an honest config choice)
-- dense_argmin the round-4 dense shallow rs=256 quality config (anchor)
+- exch1        lex + exchange/cull every ROUND
+- dense_argmin the dense shallow rs=256 quality config (anchor)
 - dense_t05/t1/t2  dense + noisy top-64 selection at temp 0.5 / 1.0 / 2.0
                (ops/lex.noisy_lex_select): full-width evaluation with a
-               noisy descent's diffusion — the directive-3 experiment
+               noisy descent's diffusion
 
-Dense arms run P=64 (the dense 365d program hangs the worker's compiler at
-P >= 128 — docs/DESIGN.md); random-window arms run P=128.
+Dense arms run P=64; random-window arms run P=128.
 
-Run (TPU): python -u bench/sched_quality_r5.py
+Run (GPU): python -u bench/sched_quality_r5.py
 Env: SWEEP_SET, SWEEP_REPS (3), SWEEP_BUDGETS, RUN_BASELINE=1 to also
 re-measure the C++ side in this process.
 """
@@ -29,7 +27,7 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import bench  # noqa: E402  (tpu_best_at_walls / lex_median_worst reuse)
+import bench  # noqa: E402  (device_best_at_walls / lex_median_worst reuse)
 from constraint_solver_tpu.core.ils import SolverConfig  # noqa: E402
 from constraint_solver_tpu.models.scheduling import (  # noqa: E402
     ScheduleSpec,
@@ -112,7 +110,7 @@ def main():
         runs = []
         for rep in range(REPS):
             s, chunk = make_solver(arm, spec, f"bench{rep}")
-            r = bench.tpu_best_at_walls(lambda: s, BUDGETS, chunk)
+            r = bench.device_best_at_walls(lambda: s, BUDGETS, chunk)
             runs.append(r)
             print(f"  {arm} rep={rep}: {r}", flush=True)
         med, worst = bench.lex_median_worst(runs)

@@ -1,9 +1,7 @@
 """Scheduling-365d-20e quality-at-wall config sweep, one process.
 
-The C++ full-reference baseline (bench/baseline_full.cc, single thread)
-reaches soft=8 at 60 s while the dense TPU solver plateaued at soft=9
-(bench/sched_quality_probe.py round 3).  The tabu-tenure sweep ruled out
-ring capacity; this sweep probes the remaining levers — population size,
+Races the C++ full-reference baseline (bench/baseline_full.cc, single
+thread) on soft score at 60 s.  This sweep probes the levers — population size,
 elite-exchange cadence (diversity), descent depth (ls_max/bail), and the
 unrestricted-random-swap width — each config solved for SWEEP_BUDGET
 seconds from a fresh state in the same process (compiles amortized).
@@ -36,14 +34,10 @@ CONFIGS = {
     "deep": (64, 2, 1000, 50, 64),
     "p256x16": (256, 16, 200, 20, 64),
     "swaps256": (64, 2, 200, 20, 256),
-    # Round-3 follow-up: combine the two levers that each beat base —
-    # deeper descents reach the plateau 2x sooner, wide random swaps
-    # escape it (BENCH_NOTES round 3).
+    # Combine the two levers: deeper descents reach the plateau sooner,
+    # wide random swaps escape it.
     "deep_swaps256": (64, 2, 1000, 50, 256),
     "mid_swaps256": (64, 2, 400, 30, 256),
-    # (The compound-move slot configs that lived here were retired in
-    # round 4: the A/B measured equal quality medians at every wall budget
-    # and the knob was deleted — BENCH_NOTES.md round 4.)
     "swaps512": (64, 2, 200, 20, 512),
 }
 

@@ -1,9 +1,8 @@
 """Round-level overhead decomposition for scheduling-365d-20e at P=64.
 
-The round-3 isolation table (bench/sched_isolation.py) itemized the LS
-ITERATION at 2.89 ms (V3x full engine = 1.94e8 moves/s), yet the recorded
-end-to-end bench runs at ~1.07e8.  The per-iteration table cannot see
-per-ROUND costs; this harness measures them by ablation:
+The isolation table (bench/sched_isolation.py) itemizes the cost of one LS
+ITERATION; it cannot see per-ROUND costs.  This harness measures them by
+ablation:
 
 - e2e            : the bench configuration (2-round chunks, probe per chunk)
 - noprobe        : same dispatches, ONE final probe  -> probe RTT share
@@ -15,8 +14,10 @@ per-ROUND costs; this harness measures them by ablation:
                    (P x estimated lockstep trips))
 
 Every variant runs the same seed and round budget; walls are medians of
-R4O_REPS repeats with forced host syncs.  Run on the real chip:
-    python -u bench/sched_round_overhead.py
+R4O_REPS repeats with forced host syncs.  ``R4O_ITER_MS`` is the
+per-iteration time sched_isolation.py measured for the full engine on the
+same device; the productive-fraction estimate needs it.  Run on the GPU:
+    R4O_ITER_MS=<ms> python -u bench/sched_round_overhead.py
 """
 
 import datetime
@@ -38,7 +39,7 @@ from constraint_solver_tpu.parallel.population import PopulationSolver
 POP = int(os.environ.get("R4O_POP", 64))
 ROUNDS = int(os.environ.get("R4O_ROUNDS", 40))
 REPS = int(os.environ.get("R4O_REPS", 3))
-ITER_MS = 2.89  # V3x isolation floor, BENCH_NOTES round 3
+ITER_MS = float(os.environ["R4O_ITER_MS"])  # sched_isolation.py, same device
 
 
 def build_problem(perturb_identity=False):
@@ -81,10 +82,10 @@ def run_variant(name, problem, cfg, k_exchange=4, probe_each=True):
     walls.sort()
     wall = walls[len(walls) // 2]
     ms_round = wall * 1000 / ROUNDS
-    tput = iters * problem.width / wall
+    rate = iters * problem.width / wall
     prod = iters * ITER_MS / 1000 / (POP * wall)  # productive fraction est.
     print(f"{name:28s} wall={wall:6.2f}s  {ms_round:7.1f} ms/round  "
-          f"{tput:.3g} moves/s  iters={iters}  prod~{prod:.0%}  "
+          f"{rate:.3g} moves/s  iters={iters}  prod~{prod:.0%}  "
           f"best={final}", flush=True)
     return wall
 

@@ -1,12 +1,11 @@
-"""Employee-scheduling TPU benchmark: large instance + delta-vs-rescore A/B.
+"""Employee-scheduling benchmark: large instance + delta-vs-rescore A/B.
 
-VERDICT round-1 item 1: make scheduling a first-class TPU benchmark.
-Measures on one chip (keep dispatches <= 2 rounds per docs/DESIGN.md):
+Measures on one device:
 
 1. Large instance (365 days x 20 employees, 10 holidays each): moves/s and
    time-to-(hard=0) with the delta-evaluation path, population P lanes.
 2. The same instance with proposer="rescore" (identical trajectories,
-   round-1 full-rescore scoring) — the measured delta-vs-rescore A/B.
+   full-rescore scoring) — the delta-vs-rescore A/B.
 3. The reference CLI instance (31d x 7e, wasm-bridge params) quality at the
    reference's 250-round budget.
 
@@ -92,10 +91,13 @@ def main():
         from constraint_solver_tpu.utils.roofline import (
             cost_analysis,
             format_roofline,
+            peaks_for,
             roofline,
         )
 
         import jax as _jax
+
+        peaks = peaks_for(_jax.devices()[0].device_kind)
 
         solver = PopulationSolver(dense_p, config, population=POP)
         jitted = _jax.jit(lambda st: solver._chunk_jit(st, 2))
@@ -108,7 +110,7 @@ def main():
         _jax.block_until_ready(st)
         wall = time.time() - t0
         print(
-            f"dense chunk roofline: {format_roofline(roofline(ca['flops'], ca['bytes'], 1, wall))}",
+            f"dense chunk roofline: {format_roofline(roofline(ca['flops'], ca['bytes'], 1, wall, peaks))}",
             flush=True,
         )
     except Exception as e:  # noqa: BLE001

@@ -1,4 +1,4 @@
-"""constraint_solver_tpu — a TPU-native local-search constraint solver.
+"""constraint_solver_tpu — an accelerator-native local-search constraint solver.
 
 A brand-new JAX/XLA/Pallas framework with the capabilities of the Rust
 reference ``asimihsan/constraint-solver`` (iterated local search per
@@ -7,8 +7,8 @@ Lourenco/Martin/Stuetzle, cf. reference local-search/src/local_search.rs:8-13):
 - ``core``     — problem-agnostic ILS engine: dense tabu ring, elite archive,
                  weighted acceptance, perturbation, round-based driver.
 - ``models``   — problem domains: Ackley, N-Queens, employee scheduling.
-- ``ops``      — TPU compute ops: lexicographic (hard, soft) score reductions,
-                 XOR solution fingerprints, batched delta-scoring kernels.
+- ``ops``      — device compute ops: lexicographic (hard, soft) score
+                 reductions, XOR solution fingerprints.
 - ``parallel`` — vmapped trajectory populations and sharded portfolios with
                  collective elite exchange over a device mesh.
 - ``utils``    — string seeding (blake2), configs, printing, checkpointing.

@@ -14,6 +14,8 @@ from __future__ import annotations
 import argparse
 import time
 
+from constraint_solver_tpu.utils import backend
+
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description="Ackley-function example")
@@ -21,13 +23,10 @@ def main(argv=None):
     parser.add_argument("--dims", "-d", type=int, default=10)
     parser.add_argument("--rounds", type=int, default=1000)
     parser.add_argument("--population", "-p", type=int, default=1)
-    parser.add_argument("--platform", choices=["tpu", "cpu"], default="tpu")
+    backend.add_platform_arg(parser)
     args = parser.parse_args(argv)
 
-    if args.platform == "cpu":
-        import jax
-
-        jax.config.update("jax_platforms", "cpu")
+    backend.init(args.platform)
 
     import numpy as np
 

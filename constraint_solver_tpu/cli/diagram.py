@@ -1,4 +1,4 @@
-"""Diagram layout CLI — solve box placement on TPU, route connectors in C++.
+"""Diagram layout CLI — solve box placement on the device, route connectors in C++.
 
 The reference's diagram binary only renders a hard-coded 3x3 grid demo
 (reference examples/diagram/src/main.rs:158-236); its solver integration is
@@ -17,6 +17,8 @@ from __future__ import annotations
 import argparse
 import time
 
+from constraint_solver_tpu.utils import backend
+
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description="Diagram layout example")
@@ -30,14 +32,11 @@ def main(argv=None):
     parser.add_argument("--population", "-p", type=int, default=1)
     parser.add_argument("--rounds", type=int, default=200)
     parser.add_argument("--svg", default=None, help="write routed SVG here")
-    parser.add_argument("--platform", choices=["tpu", "cpu"], default="tpu")
+    backend.add_platform_arg(parser)
     parser.add_argument("--quiet", action="store_true")
     args = parser.parse_args(argv)
 
-    if args.platform == "cpu":
-        import jax
-
-        jax.config.update("jax_platforms", "cpu")
+    backend.init(args.platform)
 
     from constraint_solver_tpu.core.ils import Solver, SolverConfig
     from constraint_solver_tpu.models.diagram_layout import (

@@ -14,6 +14,8 @@ import argparse
 import datetime
 import time
 
+from constraint_solver_tpu.utils import backend
+
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description="Employee scheduling local search example")
@@ -25,10 +27,9 @@ def main(argv=None):
     parser.add_argument(
         "--proposer", choices=["dense", "random", "rescore", "systematic"],
         default=None,
-        help="neighborhood proposer (default: dense, the TPU-first block — "
-        "the throughput path; random = the reference's window of random "
-        "moves — the measured QUALITY-at-wall winner with --population, "
-        "BENCH_NOTES.md round 4)")
+        help="neighborhood proposer (default: dense, the full-block "
+        "throughput path; random = the reference's window of random "
+        "moves, the quality-at-wall mode with --population)")
     parser.add_argument(
         "--window-size", type=int, default=None,
         help="random/rescore proposers only: moves sampled per iteration "
@@ -38,14 +39,12 @@ def main(argv=None):
         "--select-topk", type=int, default=0,
         help="dense proposer: sample the applied move from the k best "
         "candidates (Gumbel over exp(-score/temp)) instead of the argmin; "
-        "the measured round-5 quality configuration is 64 "
-        "(BENCH_NOTES.md, presets.scheduling_dense_quality)")
+        "presets.scheduling_dense_quality uses 64")
     parser.add_argument(
         "--select-temp", type=float, default=0.5,
-        help="selection temperature for --select-topk (default 0.5, the "
-        "measured sweet spot)")
+        help="selection temperature for --select-topk (default 0.5)")
     parser.add_argument("--population", "-p", type=int, default=1)
-    parser.add_argument("--platform", choices=["tpu", "cpu"], default="tpu")
+    backend.add_platform_arg(parser)
     parser.add_argument("--quiet", action="store_true")
     parser.add_argument("--checkpoint", default=None, metavar="PATH",
                         help="snapshot solver state here every "
@@ -54,10 +53,7 @@ def main(argv=None):
     parser.add_argument("--checkpoint-every", type=int, default=100)
     args = parser.parse_args(argv)
 
-    if args.platform == "cpu":
-        import jax
-
-        jax.config.update("jax_platforms", "cpu")
+    backend.init(args.platform)
 
     import dataclasses
 

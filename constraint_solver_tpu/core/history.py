@@ -63,9 +63,10 @@ class TabuRing(NamedTuple):
         match = jnp.all(self.fps == fp[None, :], axis=-1)
         present = jnp.any(match)
         slot = jnp.where(present, jnp.argmax(match), self.head)
-        # Masked vector updates, not .at[slot].set: a dynamic-index scatter
-        # serializes on the TPU, while iota==slot select streams the ring
-        # through the VPU (the push sits on the per-iteration hot path).
+        # Masked vector updates, not .at[slot].set: the iota==slot select
+        # streams the ring in one fused pass (the push sits on the
+        # per-iteration hot path).  Not yet compared with a scatter on the
+        # H100.
         sel = jnp.arange(self.fps.shape[0]) == slot
         fps = jnp.where(sel[:, None], fp[None, :], self.fps)
         iters = jnp.where(sel, count, self.iters)
@@ -78,14 +79,12 @@ class TabuRing(NamedTuple):
         """Vectorized membership: fps uint32[W, 2] → bool[W]
         (ref History::is_solution_tabu, local_search.rs:197-199).
 
-        Layout note (measured, round 4): this 3-D broadcast + all(axis=-1)
-        beats per-lane-plane [W, T] compares (2.44 vs 4.17 ms/iter at
-        width 8760 x ring 256 in bench/sched_isolation.py V2x) — slicing
-        ``fps[:, 0]`` out of the interleaved [W, 2] layout costs a strided
-        relayout that exceeds the trailing-dim-2 padding it avoids.  The
-        filter's cost scales with ring capacity T (T=256: 0.84 ms/iter of
-        the V3x engine; T=64: ~0.4); the tabu-tenure sweep (round 3) makes
-        capacity 128 quality-equal to 256-512, which is the cheap lever."""
+        Layout note: this 3-D broadcast + all(axis=-1) avoids slicing
+        ``fps[:, 0]`` out of the interleaved [W, 2] layout (a strided
+        relayout); per-lane-plane [W, T] compares are the alternative.  Not
+        yet measured on the H100 (bench/sched_isolation.py V2x compares
+        them).  The filter's cost scales with ring capacity T, so a small
+        ring is the cheap lever."""
         match = jnp.all(fps[:, None, :] == self.fps[None, :, :], axis=-1)  # [W, T]
         alive = self.iters + self.expiry >= self.count  # [T]
         return jnp.any(match & alive[None, :], axis=-1)

@@ -1,6 +1,6 @@
 """Iterated Local Search engine and round-based driver.
 
-TPU-native re-design of the reference ``IteratedLocalSearch``
+Accelerator re-design of the reference ``IteratedLocalSearch``
 (reference local-search/src/iterated_local_search.rs:96-203), preserving the
 round semantics of ``execute_round`` (ref :173-202):
 
@@ -99,8 +99,9 @@ class SolverConfig:
     # per iteration.  2^21 keeps the membership matrix in the same cost
     # class as the candidate block itself for the small-W domains that
     # need it (scheduling: the pick-then-check budget exhausted on 59.8%
-    # of iterations, bench/tabu_exhaustion.py) while leaving the 50k-wide
-    # nqueens block (which measured 0 retries) on the cheap path.
+    # of iterations, bench/tabu_exhaustion.py at commit 9d1252d) while
+    # leaving the 50k-wide nqueens block (0 retries counted) on the cheap
+    # path.
     _EXACT_FILTER_BUDGET = 2**21
 
     def ls_params(self, problem_width: int | None = None) -> LsParams:
@@ -119,8 +120,8 @@ class SolverConfig:
             select_temp=self.select_temp,
             tabu_exact_filter=exact,
             # A user-forced mode (True/False) must win even over proposers
-            # that provide free dense fingerprints (the pick-then-check A/B
-            # in bench/tabu_exhaustion.py depends on forcing False).
+            # that provide free dense fingerprints (a pick-then-check A/B
+            # depends on forcing False).
             tabu_forced=self.tabu_exact_filter is not None,
         )
 
@@ -457,15 +458,17 @@ class Solver:
             out["moves_per_sec"] = round(moves / self._wall)
         return out
 
-    def roofline(self, chunk: int = 2) -> dict:
-        """MFU / HBM-bandwidth accounting of this solver's compiled chunk
-        program against the chip's peaks (utils/roofline.py), scaled by the
-        measured solve wall.  Costs come from XLA's own ``cost_analysis()``
-        of the optimized HLO, never hand-maintained constants.  Compiles one
-        fresh program instance — call after a solve, not per round.  The
-        reference has no perf accounting at all (SURVEY.md §5)."""
+    def roofline(self, peaks, chunk: int = 2) -> dict:
+        """FLOP/s and bandwidth of this solver's compiled chunk program as
+        fractions of ``peaks`` (a ``utils.roofline.DevicePeaks``, e.g.
+        ``peaks_for(jax.devices()[0].device_kind)``), scaled by the measured
+        solve wall.  Costs come from XLA's own ``cost_analysis()`` of the
+        optimized HLO.  Compiles one fresh program instance — call after a
+        solve, not per round.  The reference has no perf accounting at all
+        (SURVEY.md §5)."""
         from constraint_solver_tpu.utils.roofline import chunk_roofline
 
         return chunk_roofline(
-            self._chunk_jit, self.state, int(self.state.round), self._wall, chunk
+            self._chunk_jit, self.state, int(self.state.round), self._wall,
+            peaks, chunk,
         )

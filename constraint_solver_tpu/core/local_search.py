@@ -1,6 +1,6 @@
 """Inner local-search descent engine.
 
-TPU-native re-design of the reference ``LocalSearch::execute`` loop
+Accelerator re-design of the reference ``LocalSearch::execute`` loop
 (reference local-search/src/local_search.rs:301-343).  Semantics preserved:
 
 - the start solution is scored, and is the returned best if nothing improves;
@@ -55,15 +55,15 @@ class LsParams(NamedTuple):
     # neighborhood against the ring in one [W, T] op, and pick the best
     # non-tabu candidate.  Affordable — and measured necessary — for
     # small-W domains: the dense scheduling proposer exhausted the retry
-    # budget on 59.8% of iterations (bench/tabu_exhaustion.py, 31d x 7e on
-    # chip), while nqueens-1000's 50k-wide block never retries at all
+    # budget on 59.8% of iterations (bench/tabu_exhaustion.py at commit
+    # 9d1252d, 31d x 7e), while nqueens-1000's 50k-wide block never retries at all
     # (0/12,800) and would pay 50k x T compares per iteration here.
     # SolverConfig auto-enables this when width * ring <= ~2M, and the
     # engine upgrades to it whenever the proposer supplies free dense
     # fingerprints (Neighborhood.fp_deltas) unless tabu_forced pins a mode.
     tabu_exact_filter: bool = False
     tabu_forced: bool = False
-    # Noisy selection (VERDICT r4 directive 3): when > 1, the applied move
+    # Noisy selection: when > 1, the applied move
     # is SAMPLED from the ``select_topk`` lexicographically-best valid
     # non-tabu candidates with Gumbel weight exp(-score/select_temp)
     # (ops/lex.noisy_lex_select) instead of taking the global argmin —
@@ -116,7 +116,8 @@ def _pick_then_check(problem, params, nb, tabu, c, n_valid, iota_w, retries):
     candidates are never chosen" invariant without the O(W x T) membership
     matrix.  The first pick runs OUTSIDE the retry loop (it is the only one
     that ever executes in practice — measured first-pick tabu-hit rate
-    0/12,800 on nqueens-1000, bench/ls_isolation.py) and uses the
+    0/12,800 on nqueens-1000, bench/ls_isolation.py at commit 9d1252d) and
+    uses the
     proposer's ``hint_idx`` when available; retries track a tiny exclusion
     list instead of carrying/rewriting the full [W] validity mask through
     the loop.  Returns (idx, cand_fp, found, exhausted_event)."""
@@ -234,7 +235,7 @@ def ls_execute(
             # divergence does not exist on this path.  Proposers that hash
             # their batch densely supply ``fp_deltas`` (one [W, 2] XOR
             # here); only without them does the vmapped move_fp fallback —
-            # W serial gathers on TPU — run, which is why the auto
+            # W gathers — run, which is why the auto
             # threshold (SolverConfig) keeps that fallback off wide blocks.
             if nb.fp_deltas is not None:
                 fps_all = c.fp[None, :] ^ nb.fp_deltas

@@ -1,9 +1,9 @@
-"""The problem-domain interface of the TPU solver core.
+"""The problem-domain interface of the solver core.
 
 The reference defines five traits — ``Solution``, ``Score``,
 ``SolutionScoreCalculator``, ``InitialSolutionGenerator``, ``MoveProposer``
 (reference local-search/src/local_search.rs:16-90) plus ``Perturbation``
-(iterated_local_search.rs:76-88).  A TPU-native engine cannot call back into
+(iterated_local_search.rs:76-88).  A compiled device engine cannot call back into
 per-move iterators, so the contract is re-shaped around dense tensors:
 
 - a *solution* is a fixed-shape array pytree ("state"),
@@ -52,8 +52,8 @@ class Neighborhood(NamedTuple):
 
     ``hint_idx`` (optional): the flat index of the lexicographic-minimum
     valid candidate, when the proposer can produce it more cheaply than a
-    separate full-width argmin pass (e.g. the nqueens Pallas kernel emits
-    per-row minima as a byproduct of scoring).  MUST be exactly
+    separate full-width argmin pass (e.g. the nqueens block emits per-row
+    minima as a byproduct of scoring).  MUST be exactly
     ``lex_argmin(scores, valid)`` including first-index tie-breaking — the
     engine uses it verbatim as the first tabu pick and only falls back to
     full-width masked argmin on a (measured-rare) tabu hit.

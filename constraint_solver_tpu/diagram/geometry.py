@@ -39,7 +39,7 @@ def _build_lib() -> str:
     concurrent builders (parallel pytest workers) never dlopen a
     half-written object."""
     build_dir = os.path.join(
-        tempfile.gettempdir(), f"csp_tpu_native_{os.getuid()}"
+        tempfile.gettempdir(), f"csp_native_{os.getuid()}"
     )
     os.makedirs(build_dir, mode=0o700, exist_ok=True)
     if os.stat(build_dir).st_uid != os.getuid():

@@ -5,14 +5,15 @@ examples/diagram/src/lib.rs:620-705, after Wybrow/Marriott/Stuckey 2009) but
 stops there — no router, and its solver hookup is empty structs
 (main.rs:7-9).  This module finishes the pipeline:
 
-    TPU solve (models/diagram_layout.py)  →  grid layout
+    device solve (models/diagram_layout.py) → grid layout
     C++ sweep (native/diagram.cc)         →  visibility graph
     Dijkstra here                         →  orthogonal connector routes
     render_routed                         →  SVG
 
 Routing is host-side graph search over the irregular sparse graph — exactly
-the kind of data structure that stays off the TPU (docs/DESIGN.md); the TPU
-owns the dense layout optimization, the host owns the final geometry pass.
+the kind of data structure that stays off the device (docs/DESIGN.md); the
+device owns the dense layout optimization, the host owns the final geometry
+pass.
 
 Each connector is routed vertex-nearest-to-center → vertex-nearest-to-center
 with edge weight = Manhattan length + a fixed per-bend penalty (prefers

@@ -8,7 +8,7 @@ Two scorer layers:
 
 - ``ackley_np`` — float64 numpy host implementation, validated against the
   SFU/Octave golden constants at 1e-12 (ref math-util/src/ackley.rs:54-102).
-- ``ackley`` — float32 jnp device implementation (the TPU compute path),
+- ``ackley`` — float32 jnp device implementation (the device compute path),
   validated against the numpy layer.
 
 Domain semantics preserved from the reference:

@@ -4,7 +4,7 @@ The reference's diagram crate ships orthogonal connector-routing *geometry*
 (sweep-line interesting segments, visibility graph) but its solver hookup is
 two empty structs (reference examples/diagram/src/main.rs:7-9:
 ``DiagramSpecification`` / ``DiagramSolution``) — the domain was never wired
-into the ILS engine.  This module completes that intent TPU-first:
+into the ILS engine.  This module completes that intent, accelerator-first:
 
 Problem: place B axis-aligned boxes (integer sizes) on a G x G grid of cells,
 minimizing lexicographically
@@ -23,7 +23,7 @@ by delta evaluation in one dense pass:
 - pair overlaps of a relocated box against every other box factor into
   independent x/y interval tests, so ``new_overlaps[b, x, y] =
   sum_j ox[b, j, x] * oy[b, j, y]`` is one batched [G, B] @ [B, G] matmul
-  per box — the MXU scores every candidate placement's hard delta at once;
+  per box — one matmul scores every candidate placement's hard delta;
 - connector lengths separate per axis, so the soft delta is two
   ``[B, E] @ [E, G]``-shaped contractions plus a broadcast add.
 

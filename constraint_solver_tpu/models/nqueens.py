@@ -15,7 +15,7 @@ Reference semantics (reference examples/nqueens/src/lib.rs):
   ``U[1, n/20]`` random columns if current is an elite else ``U[1, n/2]``
   (intensify/diversify), w.p. 10/110 do nothing.
 
-TPU-native scoring: instead of the reference's O(n^2) pairwise rescan per
+Dense scoring: instead of the reference's O(n^2) pairwise rescan per
 candidate clone (ref lib.rs:74-87 called per move), we maintain per-line
 occupancy counters — row / diagonal / anti-diagonal — from which
 
@@ -29,7 +29,7 @@ attacking pairs, each contributing C(k,2) pairs), and a change-value move
             +2 * [(rc[r']-[r'==r]) + (dc[d']-[d'==d]) + (ac[a']-[a'==a])]
 
 The whole [A, n] candidate block (A sampled columns x all n rows) is scored
-as one dense gather+add tensor op on the VPU.
+as one fused elementwise tensor op (``block_scores``).
 
 Weighted sampling without replacement is Gumbel-top-k (the exact
 Plackett-Luce equivalent of successive weighted draws); see SURVEY.md §7
@@ -42,12 +42,12 @@ Divergence note (neighborhood width): the reference truncates the proposed
 move list to ``window_size`` = 5n candidates and stops scoring there
 (ref examples/nqueens/src/main.rs:130, local_search.rs:321); this
 neighborhood scores the full dense A x n block (50,000 candidates at the
-bench's A=50, n=1000) because on the TPU the block is one fused VPU op —
+bench's A=50, n=1000) because the block is one fused elementwise op —
 masking it to 5n would save nothing.  Consequence for metrics: "moves
 evaluated/s" counts ~10x more candidate evaluations per LS iteration than
 the reference would score for the same descent, so cross-implementation
 comparisons should anchor on time-to-zero-violations (bench.py reports
-both; BENCH_NOTES.md keeps time-to-zero primary).
+both).
 
 The solver state ``NQState`` carries the line counters and per-column
 conflict scores INCREMENTALLY: applying a move updates 6 counter entries
@@ -69,6 +69,7 @@ import jax.numpy as jnp
 from constraint_solver_tpu.core.problem import Neighborhood, Problem
 from constraint_solver_tpu.ops.fingerprint import fingerprint_i32, fp_update
 from constraint_solver_tpu.ops.lex import make_score
+from constraint_solver_tpu.ops.nqueens_pallas import nqueens_block_kernel
 
 
 class NQState(NamedTuple):
@@ -86,9 +87,10 @@ class NQState(NamedTuple):
 def line_counts(rows: jax.Array):
     """Occupancy counters (row_counts[n], diag_counts[2n-1], anti[2n-1]).
 
-    One-hot-compare reductions, NOT scatter-adds: TPU scatters with random
-    1D indices serialize to scalar stores, while the [L, n] equality compare
-    + sum streams through the VPU and fuses without materializing.
+    One-hot-compare reductions, not scatter-adds: the [L, n] equality
+    compare + sum fuses without materializing.  (Chosen where scatters with
+    random 1D indices serialized; not yet compared with a scatter-add on the
+    H100.)
     """
     n = rows.shape[-1]
     cols = jnp.arange(n, dtype=rows.dtype)
@@ -145,32 +147,64 @@ def build_state(rows: jax.Array) -> NQState:
     return NQState(rows=rows, rc=rc, dc=dc, ac=ac, cs=cs)
 
 
+def block_scores(rc, dc, ac, c, r, removed, cur):
+    """Score the [A, n] candidate block: moving sampled column ``c[j]`` (now
+    on row ``r[j]``, with ``removed[j]`` = (rc[r]-1)+(dc[d]-1)+(ac[a]-1)) to
+    every row, from current total ``cur``.  Returns ``(scores float32[A, n],
+    row_min float32[A], row_arg int32[A])`` with a first-index argmin."""
+    n = rc.shape[0]
+    f32 = jnp.float32
+    rp = jnp.arange(n, dtype=jnp.int32)[None, :]  # [1, n] candidate rows
+    # dc[rp - c_j + (n-1)] and ac[rp + c_j] are CONTIGUOUS slices of the
+    # diagonal tables (length n, start n-1-c_j resp. c_j).
+    dc_at = jax.vmap(
+        lambda s: jax.lax.dynamic_slice(dc, (s,), (n,))
+    )((n - 1) - c)  # [A, n]
+    ac_at = jax.vmap(
+        lambda s: jax.lax.dynamic_slice(ac, (s,), (n,))
+    )(c)
+    d = r - c + (n - 1)
+    a = r + c
+    dp = rp - c[:, None] + (n - 1)                # [A, n]
+    ap = rp + c[:, None]
+    added = (
+        (rc[None, :] - (rp == r[:, None]))
+        + (dc_at - (dp == d[:, None]))
+        + (ac_at - (ap == a[:, None]))
+    )  # [A, n]
+    delta = 2 * (added - removed[:, None])
+    scores = cur + delta.astype(f32)  # [A, n]
+    row_min = jnp.min(scores, axis=1)
+    row_arg = jnp.argmax(scores == row_min[:, None], axis=1).astype(jnp.int32)
+    return scores, row_min, row_arg
+
+
 @lru_cache(maxsize=32)
 def make_nqueens_problem(
     board_size: int,
     sample_cols: int | None = None,
-    use_pallas: bool | str = False,
     nbr_axis: str | None = None,
     nbr_shards: int = 1,
     nbr_keep: int = 64,
     col_sampling: str = "exact",
-    block_impl: str = "slice",
 ) -> Problem:
     """Build the N-Queens problem.  ``sample_cols`` (A) is the number of
     conflicted columns sampled per proposal; default ``max(1, n // 20)``
     mirrors the reference's ``amount`` cap (ref lib.rs:196).
-
-    ``use_pallas``: score the [A, n] candidate block with the fused Pallas
-    TPU kernel (ops/nqueens_pallas.py) instead of the XLA op chain;
-    ``"interpret"`` runs the kernel in interpreter mode (CPU testing).
 
     ``nbr_axis``/``nbr_shards``: tensor-parallel neighborhood.  Inside a
     ``shard_map`` over that mesh axis, each shard scores A/shards of the
     sampled columns, keeps its ``nbr_keep`` best candidates, and an
     all_gather rebuilds a small global candidate list — the engine is
     oblivious.  The Gumbel column sample is computed identically on every
-    shard (replicated state, same key), so shards stay consistent."""
+    shard (replicated state, same key), so shards stay consistent.
+
+    The [A, n] block runs the Triton-route Pallas kernel
+    (ops/nqueens_pallas.py) when JAX's backend is a GPU -- it beat the XLA
+    slice path end to end on the H100 (PERF.md) -- and ``block_scores``
+    everywhere else."""
     n = board_size
+    use_kernel = jax.default_backend() == "gpu"
     a_max = sample_cols if sample_cols is not None else max(1, n // 20)
     if nbr_axis is not None:
         # Pad A up so every shard gets an equal slice.
@@ -205,9 +239,8 @@ def make_nqueens_problem(
         logits = jnp.where(conflicted, logits, -jnp.inf)
         gumbel = jax.random.gumbel(k_gumbel, (n,))
         if col_sampling == "approx":
-            # approx_max_k skips the exact partial sort (measured 0.5
-            # ms/lockstep-iteration at P=256, n=1000 — bench/ls_isolation
-            # V4); recall ~0.95 slightly perturbs Gumbel inclusion
+            # approx_max_k skips the exact partial sort; recall ~0.95
+            # slightly perturbs Gumbel inclusion
             # probabilities, the same divergence class as the Gumbel
             # sampling itself (docstring note above).  Deterministic.
             _, chosen_cols = jax.lax.approx_max_k(logits + gumbel, a_max)
@@ -238,79 +271,14 @@ def make_nqueens_problem(
         )  # [A]
 
         rp = jnp.arange(n, dtype=jnp.int32)[None, :]  # [1, n] candidate rows
-        if use_pallas:
-            from constraint_solver_tpu.ops.nqueens_pallas import (
-                nqueens_neighborhood_scores,
-            )
-
-            cand_hard, row_min, row_arg = nqueens_neighborhood_scores(
-                rows, rc, dc, ac, c, r, removed, cur_score[0],
-                interpret=(use_pallas == "interpret"),
+        if use_kernel:
+            cand_hard, row_min, row_arg = nqueens_block_kernel(
+                rc, dc, ac, c, r, removed, cur_score[0],
             )
         else:
-            f32 = jnp.float32
-            if block_impl == "slice":
-                # dc[rp - c_j + (n-1)] and ac[rp + c_j] are CONTIGUOUS
-                # slices of the diagonal tables (length n, start n-1-c_j
-                # resp. c_j) — dynamic slices, not gathers.
-                dc_at = jax.vmap(
-                    lambda s: jax.lax.dynamic_slice(dc, (s,), (n,))
-                )((n - 1) - c)  # [A, n]
-                ac_at = jax.vmap(
-                    lambda s: jax.lax.dynamic_slice(ac, (s,), (n,))
-                )(c)
-            elif block_impl == "mxu_conv":
-                # MXU formulation (VERDICT r3 directive 8): the shifted
-                # table reads are a cross-correlation of the counter table
-                # with one impulse kernel per candidate column —
-                #   out[j, p] = sum_k imp[j, k] * table[p + k],
-                # imp_d[j, n-1-c_j] = 1 gives dc[p + n-1 - c_j] and
-                # imp_a[j, c_j] = 1 gives ac[p + c_j] — so the whole [A, n]
-                # read lowers to two conv contractions on the MXU instead
-                # of A serialized dynamic slices (or the Pallas kernel's
-                # VPU rolls).  2*A*n^2 f32 FLOPs each; exact (counter
-                # values are tiny integers, f32 dot products are exact
-                # far beyond 2^24).
-                iota_f = jnp.arange(n)
-                imp_d = (iota_f[None, :] == (n - 1 - c)[:, None]).astype(f32)
-                imp_a = (iota_f[None, :] == c[:, None]).astype(f32)
-                conv = lambda tbl, imp: jax.lax.conv_general_dilated(
-                    tbl[None, None, :], imp[:, None, :], (1,), "VALID"
-                )[0]  # [A, n]
-                dc_at = conv(dc, imp_d)
-                ac_at = conv(ac, imp_a)
-            elif block_impl == "mxu_toeplitz":
-                # Same contraction with the shift structure materialized:
-                # T_d[s, p] = dc[p + n-1 - s], then one [A, n] @ [n, n]
-                # matmul.  Pays an n^2 table build per iteration that the
-                # conv form avoids — kept for the A/B (bench/kernel_iso.py).
-                iota_f = jnp.arange(n)
-                T_d = jax.vmap(
-                    lambda s: jax.lax.dynamic_slice(dc, (s,), (n,))
-                )((n - 1) - iota_f)  # [n, n]
-                T_a = jax.vmap(
-                    lambda s: jax.lax.dynamic_slice(ac, (s,), (n,))
-                )(iota_f)
-                onehot_c = (c[:, None] == iota_f[None, :]).astype(f32)
-                dc_at = onehot_c @ T_d
-                ac_at = onehot_c @ T_a
-            else:
-                raise ValueError(f"unknown block_impl {block_impl!r}")
-            dp = rp - c[:, None] + (n - 1)                # [A, n]
-            ap = rp + c[:, None]
-            added = (
-                (rc[None, :] - (rp == r[:, None]))
-                + (dc_at - (dp == d[:, None]))
-                + (ac_at - (ap == a[:, None]))
-            )  # [A, n]
-            delta = 2 * (added - removed[:, None])
-            cand_hard = cur_score[0] + delta.astype(jnp.float32)  # [A, n]
-            # Row min/argmin (first-index tie-break), the XLA mirror of the
-            # kernel's SMEM byproduct outputs.
-            row_min = jnp.min(cand_hard, axis=1)
-            row_arg = jnp.argmax(
-                cand_hard == row_min[:, None], axis=1
-            ).astype(jnp.int32)
+            cand_hard, row_min, row_arg = block_scores(
+                rc, dc, ac, c, r, removed, cur_score[0]
+            )
         a_here = c.shape[0]
         hard_flat = cand_hard.reshape(-1)
         mv_cols = jnp.broadcast_to(c[:, None], (a_here, n)).reshape(-1)

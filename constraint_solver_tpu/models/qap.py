@@ -1,4 +1,4 @@
-"""Quadratic Assignment Problem domain — the MXU-resident model family.
+"""Quadratic Assignment Problem domain — the matmul-heavy model family.
 
 Not in the reference (which ships Ackley/N-Queens/scheduling); added because
 QAP is the canonical hard assignment problem the framework's delta-evaluation
@@ -11,22 +11,22 @@ Problem: place n facilities on n locations (permutation ``p``) minimizing
 
 with symmetric flow F and distance D (zero diagonals).
 
-TPU-native scoring: let G = D[p][:, p] be the permuted distance matrix
-(computed gather-free as onehot(p) @ D @ onehot(p)^T — two MXU matmuls).
+Dense scoring: let G = D[p][:, p] be the permuted distance matrix
+(computed as onehot(p) @ D @ onehot(p)^T — two matmuls).
 Then
 
     cost = sum(F * G)
 
 and the swap delta for ALL n^2 facility pairs at once is ONE matmul:
 
-    H = F @ G                                     # [n, n] on the MXU
+    H = F @ G                                     # one [n, n] matmul
     delta[a, b] = 2 * (H[a,b] + H[b,a] - H[a,a] - H[b,b] + 2 * F[a,b] * G[a,b])
 
 where the F[a,b]*G[a,b] term corrects the k in {a, b} contributions
 (standard QAP swap algebra, cf. the O(1) delta-component paper in
 PAPERS.md).  The whole
-neighborhood (n(n-1)/2 swaps) is scored by one [n,n]x[n,n] matmul — the MXU
-does the heavy lifting, unlike the VPU-bound N-Queens/scheduling paths.
+neighborhood (n(n-1)/2 swaps) is scored by one [n,n]x[n,n] matmul, unlike
+the elementwise N-Queens/scheduling paths.
 
 Property-tested against naive full rescores (tests/test_qap.py).
 """
@@ -75,8 +75,52 @@ class QAPSpec(NamedTuple):
 
 
 def qap_cost_naive(flow: np.ndarray, dist: np.ndarray, p: np.ndarray) -> float:
-    """Host oracle: direct double sum."""
-    return float(np.sum(flow * dist[np.ix_(p, p)]))
+    """Host oracle: direct double sum in float64 (exact for integer
+    instances)."""
+    return float(np.sum(np.float64(flow) * dist[np.ix_(p, p)]))
+
+
+@jax.jit
+def qap_cost_int32(flow: jax.Array, dist: jax.Array, p: jax.Array) -> jax.Array:
+    """sum(F * D[p][:, p]) on the device, summed in int32 as
+    ``make_qap_problem`` sums costs (exact under ``exactness_precision``)."""
+    return jnp.sum((flow * dist[p][:, p]).astype(jnp.int32))
+
+
+def exactness_precision(flow: np.ndarray, dist: np.ndarray):
+    """Check that ``make_qap_problem`` scores this instance exactly, and
+    return the matmul precision its products of instance values need.
+
+    With ``M = max|F| max|D|`` and ``B = max row/column sum of |F| x max|D|``
+    (a bound on every entry and partial sum of H = F G):
+
+    - float32 holds every integer up to 2^24, and the largest float32
+      intermediate is ``max(4B + 2M, 2B + 8M)`` (the swap deltas; the
+      incremental H update), so that must stay within 2^24;
+    - costs are summed in int32, and no permutation's cost exceeds the
+      rearrangement bound ``sort(|F|) . sort(|D|)``, which must stay below
+      2^31;
+    - TF32 (a GPU's default for float32 products) holds integers up to
+      2^11, so larger values get ``Precision.HIGHEST``.
+
+    Raises ValueError when the instance breaks the first two bounds."""
+    if not (np.array_equal(flow, np.round(flow))
+            and np.array_equal(dist, np.round(dist))):
+        raise ValueError("QAP instances must be integer-valued")
+    f = np.abs(flow.astype(np.int64))
+    d = np.abs(dist.astype(np.int64))
+    max_f, max_d = int(f.max(initial=0)), int(d.max(initial=0))
+    m = max_f * max_d
+    b = max(int(f.sum(0).max(initial=0)), int(f.sum(1).max(initial=0))) * max_d
+    if max(4 * b + 2 * m, 2 * b + 8 * m) > 2**24:
+        raise ValueError(
+            f"QAP values too large for exact float32 deltas: row sum x max "
+            f"distance = {b}, max product = {m}")
+    cost_bound = int(np.dot(np.sort(f, axis=None), np.sort(d, axis=None)))
+    if cost_bound >= 2**31:
+        raise ValueError(
+            f"QAP costs may reach {cost_bound}, past the int32 range")
+    return jax.lax.Precision.HIGHEST if max(max_f, max_d) > 2**11 else None
 
 
 class QAPState(NamedTuple):
@@ -85,9 +129,10 @@ class QAPState(NamedTuple):
     O(n^2) fused updates instead of three O(n^3) matmuls (see
     make_qap_problem docstring)."""
 
-    p: jax.Array  # int32[n]
-    g: jax.Array  # float32[n, n], exactly D[p][:, p] (updates are exact)
-    h: jax.Array  # float32[n, n], F @ G up to bounded f32 drift per round
+    p: jax.Array     # int32[n]
+    g: jax.Array     # float32[n, n], exactly D[p][:, p] (updates are exact)
+    h: jax.Array     # float32[n, n], exactly F @ G (integers below 2^24)
+    cost: jax.Array  # int32[], exactly sum(F * G)
 
 
 @lru_cache(maxsize=32)
@@ -99,51 +144,58 @@ def make_qap_problem(
     compact: bool = False,
     incremental: bool = False,
 ) -> Problem:
-    """``compact``: row-min candidate compaction for MXU-scale boards.  The
-    round-5 roofline verdict (BENCH_NOTES "QAP at MXU scale") found the
-    n>=1024 program VPU-bound at ~90% utilization: the O(n^2)-lane score
-    packing ([W, 2] make_score) and the engine's full-width masked lex
-    argmin take longer than the one MXU contraction they surround.  With
-    ``compact=True`` the proposer reduces the [n, n] delta block to ONE
-    candidate per facility row — a fused masked min+argmin over axis 1,
-    the same reduction XLA fuses INTO the delta assembly — and hands the
-    engine an n-wide candidate list (best swap partner per row) instead
-    of the n^2-wide block.  The lexicographic winner is IDENTICAL to the
-    dense path's (flat row-major argmin == smallest-a-then-smallest-b ==
-    per-row argmin + first-index row pick; tested), so greedy descents
-    take the same trajectory.  Divergence (documented per docs/DESIGN.md):
-    tabu retries beyond the first pick see the best-of-each-OTHER-row
-    rather than the global 2nd-best (which may share a row with the
-    winner) — measured first-pick tabu-hit rate on wide blocks is 0
-    (core/local_search.py:118-121), so this is theoretical.  ``width``
-    stays n^2: every delta is still evaluated each iteration, the
-    compaction only removes VPU passes over the candidate *list*.
+    """Build the QAP problem for an integer-valued ``spec``.
 
-    ``incremental``: carry G = D[p][:, p] and H = F G in the solver state
-    (``QAPState``) and update them per applied swap with EXACT permutation
-    identities (G' = P G P, small-integer f32 arithmetic, exact at any n)
-    and a rank-2 update (H' = H - fu gu^T - hu u^T + s fu u^T with
-    fu = F[:, a] - F[:, b] etc., all column differences and one outer
-    product — no matvec: F G u == H u).  The per-iteration cost drops from
-    three [n, n] x [n, n] matmuls (2 rebuilding G from p, 1 for H) to a
-    handful of fused O(n^2) VPU passes — the classic Taillard-style
-    incremental evaluation, restructured as dense tensor algebra instead
-    of scalar loops.  Selection uses the same row-min compaction as
-    ``compact``.  H is recomputed from scratch at every perturbation
-    (round start), bounding f32 drift to one descent (<= ls_max rank-2
-    adds; exact below cost 2^24, i.e. every test instance).  Memory: the
-    elite archive stores full QAPStates, so keep
+    Exactness: every score is the float32 rounding of the exact integer
+    cost.  Costs are summed in int32, and each candidate's score is
+    ``float32(cost + delta)`` with the delta itself an exact integer in
+    float32.  float32 alone cannot hold costs above 2^24 exactly
+    (QAPSpec.random reaches that near n = 1000), so the current cost is
+    never carried as a float.  ``exactness_precision`` rejects instances
+    whose values could break this (ValueError).
+
+    Matmul precision: products of instance values run at the default
+    precision, which may be TF32 on a GPU; TF32 is exact for integer
+    operands up to 2^11, as in every instance QAPSpec.random draws, and
+    instances with larger values get ``Precision.HIGHEST``.  The
+    incremental update multiplies the carried H, whose entries exceed
+    2^11, so that product always asks for ``Precision.HIGHEST``.
+
+    ``compact``: row-min candidate compaction.  The proposer reduces the
+    [n, n] delta block to ONE candidate per facility row -- a fused masked
+    min+argmin over axis 1 -- and hands the engine an n-wide candidate list
+    (best swap partner per row) instead of the n^2-wide block.  The
+    lexicographic winner is IDENTICAL to the dense path's (flat row-major
+    argmin == smallest-a-then-smallest-b == per-row argmin + first-index
+    row pick; tested), so greedy descents take the same trajectory.
+    Divergence (documented per docs/DESIGN.md): tabu retries beyond the
+    first pick see the best-of-each-OTHER-row rather than the global
+    2nd-best (which may share a row with the winner).  ``width`` stays n^2:
+    every delta is still evaluated each iteration.
+
+    ``incremental``: carry G = D[p][:, p], H = F G and the cost in the
+    solver state (``QAPState``) and update them per applied swap with EXACT
+    permutation identities (G' = P G P) and a rank-2 update
+    (H' = H - fu gu^T - hu u^T + s fu u^T with fu = F[:, a] - F[:, b] etc.;
+    F G u == H u, so no matvec through F G is needed).  The per-iteration
+    cost drops from three [n, n] x [n, n] matmuls (2 rebuilding G from p,
+    1 for H) to a handful of fused O(n^2) passes -- the classic
+    Taillard-style incremental evaluation as dense tensor algebra.
+    Selection uses the same row-min compaction as ``compact``.  G and H
+    are rebuilt from scratch at every perturbation (round start).  Memory:
+    the elite archive stores full QAPStates, so keep
     ``best_solutions_capacity`` small at large n (8 x 2 x n^2 x 4 B per
-    lane — ~4 GB at n = 4096, P = 4, capacity 8).
+    lane -- ~4 GB at n = 4096, P = 4, capacity 8).
 
     ``nbr_axis``/``nbr_shards``: tensor-parallel neighborhood.  Inside a
     ``shard_map`` over that mesh axis each shard scores its n/shards ROW
-    BLOCK of the [n, n] swap-delta matrix with two [n/S, n] x [n, n] MXU
-    matmuls (H and Hᵀ rows; F and G are symmetric so Hᵀ rows = G[rows] @ F),
+    BLOCK of the [n, n] swap-delta matrix with two [n/S, n] x [n, n]
+    matmuls (H and H^T rows; F and G are symmetric so H^T rows = G[rows] @ F),
     all_gathers the [n] diagonal, keeps its ``nbr_keep`` best candidates,
-    and an all_gather over the axis rebuilds a small global candidate list —
+    and an all_gather over the axis rebuilds a small global candidate list --
     the same collective pattern as the nqueens ``nbr_axis`` neighborhood."""
     flow_np, dist_np = spec.arrays()
+    prec = exactness_precision(flow_np, dist_np)
     n = flow_np.shape[0]
     flow = jnp.asarray(flow_np)
     dist = jnp.asarray(dist_np)
@@ -152,17 +204,25 @@ def make_qap_problem(
     rows_per = n // nbr_shards
 
     def permuted_dist(p: jax.Array) -> jax.Array:
-        """G = D[p][:, p] via onehot matmuls (MXU, gather-free)."""
+        """G = D[p][:, p] via one-hot matmuls."""
         onehot = (p[:, None] == jnp.arange(n, dtype=p.dtype)).astype(
             jnp.float32
         )
-        return onehot @ dist @ onehot.T
+        return jnp.matmul(jnp.matmul(onehot, dist, precision=prec), onehot.T,
+                          precision=prec)
+
+    def exact_cost(g: jax.Array) -> jax.Array:
+        """sum(F * G) as an exact int32 (elementwise products are exact)."""
+        return jnp.sum((flow * g).astype(jnp.int32))
+
+    def cand_scores(cost: jax.Array, delta: jax.Array) -> jax.Array:
+        return (cost + delta.astype(jnp.int32)).astype(jnp.float32)
 
     def init(key):
         return jax.random.permutation(key, jnp.arange(n, dtype=jnp.int32))
 
     def score(p):
-        return make_score(jnp.sum(flow * permuted_dist(p)))
+        return make_score(exact_cost(permuted_dist(p)).astype(jnp.float32))
 
     def is_best(s):
         return jnp.asarray(False)  # optimum unknown in general
@@ -170,50 +230,18 @@ def make_qap_problem(
     def fingerprint(p):
         return fingerprint_i32(p)
 
-    def neighborhood(p, cur_score, _key):
-        # All-pairs swap deltas in one MXU matmul (module docstring).
-        g = permuted_dist(p)
-        h = jnp.dot(flow, g.T, preferred_element_type=jnp.float32)
+    def swap_deltas(g, h):
+        """[n, n] swap deltas from G and H = F G (module docstring)."""
         hd = jnp.diagonal(h)
-        delta = 2.0 * (
-            h + h.T - hd[:, None] - hd[None, :] + 2.0 * flow * g
-        )
-        cand = cur_score[0] + delta  # [n, n]; diagonal = no-op (delta 0)
-        ia = jnp.arange(n, dtype=jnp.int32)
-        a_idx = jnp.broadcast_to(ia[:, None], (n, n)).reshape(-1)
-        b_idx = jnp.broadcast_to(ia[None, :], (n, n)).reshape(-1)
-        valid = (a_idx < b_idx)  # each unordered swap once, no no-ops
-        # NEGATIVE RESULT (round 5, bench/qap_scale.py): supplying a
-        # proposer-computed hint_idx via a [n, n] row-min sweep + per-lane
-        # dynamic row slice measured 12x SLOWER at n=1024 (8.1e9 ->
-        # 6.3e8 moves/s) — the vmapped dynamic_slice over per-lane row
-        # starts lowers to a serialized gather (the same poison the
-        # round-4 scheduling trace caught), and n=2048 stopped compiling
-        # (a [P, n^2, 1] broadcast materialized at 128x lane padding).
-        # The engine's flat masked lex_argmin fuses fine; only the
-        # algebraic candidate count is worth providing.
-        return Neighborhood(
-            scores=make_score(cand.reshape(-1)),
-            moves=(a_idx, b_idx),
-            valid=valid,
-            n_valid=jnp.int32(n * (n - 1) // 2),
-        )
+        return 2.0 * (h + h.T - hd[:, None] - hd[None, :] + 2.0 * flow * g)
 
-    def neighborhood_compact(p, cur_score, _key):
-        # Same MXU delta algebra as ``neighborhood``, then a fused masked
-        # row-wise min+argmin compacts the [n, n] block to n candidates
-        # (docstring above).  min and argmin are two reduction consumers
-        # of one fused producer — XLA emits them in the same pass over
-        # the delta block; nothing [n, n]-shaped survives to the engine.
-        g = permuted_dist(p)
-        h = jnp.dot(flow, g.T, preferred_element_type=jnp.float32)
-        hd = jnp.diagonal(h)
-        delta = 2.0 * (
-            h + h.T - hd[:, None] - hd[None, :] + 2.0 * flow * g
-        )
+    def row_min_neighborhood(cost, delta):
+        # Fused masked row-wise min+argmin compacts the [n, n] block to n
+        # candidates (docstring above); nothing [n, n]-shaped survives to
+        # the engine.
         ia = jnp.arange(n, dtype=jnp.int32)
         upper = ia[:, None] < ia[None, :]  # each unordered swap once
-        w = jnp.where(upper, cur_score[0] + delta, jnp.inf)
+        w = jnp.where(upper, cand_scores(cost, delta), jnp.inf)
         rmin = jnp.min(w, axis=1)                      # [n]
         rarg = jnp.argmin(w, axis=1).astype(jnp.int32)  # smallest-b ties
         return Neighborhood(
@@ -223,6 +251,27 @@ def make_qap_problem(
             n_valid=jnp.int32(n - 1),
         )
 
+    def neighborhood(p, cur_score, _key):
+        # All-pairs swap deltas from one [n, n] matmul (module docstring).
+        g = permuted_dist(p)
+        h = jnp.dot(flow, g.T, precision=prec)
+        cand = cand_scores(exact_cost(g), swap_deltas(g, h))  # diagonal: no-op
+        ia = jnp.arange(n, dtype=jnp.int32)
+        a_idx = jnp.broadcast_to(ia[:, None], (n, n)).reshape(-1)
+        b_idx = jnp.broadcast_to(ia[None, :], (n, n)).reshape(-1)
+        valid = (a_idx < b_idx)  # each unordered swap once, no no-ops
+        return Neighborhood(
+            scores=make_score(cand.reshape(-1)),
+            moves=(a_idx, b_idx),
+            valid=valid,
+            n_valid=jnp.int32(n * (n - 1) // 2),
+        )
+
+    def neighborhood_compact(p, cur_score, _key):
+        g = permuted_dist(p)
+        h = jnp.dot(flow, g.T, precision=prec)
+        return row_min_neighborhood(exact_cost(g), swap_deltas(g, h))
+
     def neighborhood_sharded(p, cur_score, _key):
         # Row-block of the swap-delta matrix per shard: 2/S of the matmul
         # flops each, then local-top-k + all_gather (docstring above).
@@ -231,16 +280,16 @@ def make_qap_problem(
         r0 = shard * rows_per
         f_rows = jax.lax.dynamic_slice(flow, (r0, 0), (rows_per, n))
         g_rows = jax.lax.dynamic_slice(g, (r0, 0), (rows_per, n))
-        h_rows = jnp.dot(f_rows, g, preferred_element_type=jnp.float32)
-        # Hᵀ[a, :] = (G F)[a, :] because F = Fᵀ and G = Gᵀ.
-        ht_rows = jnp.dot(g_rows, flow, preferred_element_type=jnp.float32)
+        h_rows = jnp.dot(f_rows, g, precision=prec)
+        # H^T[a, :] = (G F)[a, :] because F = F^T and G = G^T.
+        ht_rows = jnp.dot(g_rows, flow, precision=prec)
         hd_local = jnp.sum(f_rows * g_rows, axis=1)  # H[a, a] for my rows
         hd = jax.lax.all_gather(hd_local, nbr_axis, axis=0, tiled=True)  # [n]
         delta = 2.0 * (
             h_rows + ht_rows - hd_local[:, None] - hd[None, :]
             + 2.0 * f_rows * g_rows
         )
-        cand = (cur_score[0] + delta).reshape(-1)  # [rows_per * n]
+        cand = cand_scores(exact_cost(g), delta).reshape(-1)  # [rows_per * n]
         ia = jnp.arange(n, dtype=jnp.int32)
         a_idx = jnp.broadcast_to(
             (r0 + jnp.arange(rows_per, dtype=jnp.int32))[:, None],
@@ -307,39 +356,24 @@ def make_qap_problem(
         p_new = p.at[idx_sel].set(rotated)
         return jnp.where(do_change, p_new, p)
 
-    def _gh_from_p(p):
+    def _state_from_p(p):
         g = permuted_dist(p)
-        h = jnp.dot(flow, g, preferred_element_type=jnp.float32)
-        return g, h
+        h = jnp.dot(flow, g, precision=prec)
+        return QAPState(p, g, h, exact_cost(g))
 
     def init_inc(key):
-        p = init(key)
-        return QAPState(p, *_gh_from_p(p))
+        return _state_from_p(init(key))
 
     def score_inc(st):
-        return make_score(jnp.sum(flow * st.g))
+        return make_score(st.cost.astype(jnp.float32))
 
     def fingerprint_inc(st):
         return fingerprint_i32(st.p)
 
     def neighborhood_inc(st, cur_score, _key):
-        # The compact row-min neighborhood with G and H read from state —
-        # zero matmuls per iteration.
-        hd = jnp.diagonal(st.h)
-        delta = 2.0 * (
-            st.h + st.h.T - hd[:, None] - hd[None, :] + 2.0 * flow * st.g
-        )
-        ia = jnp.arange(n, dtype=jnp.int32)
-        upper = ia[:, None] < ia[None, :]
-        w = jnp.where(upper, cur_score[0] + delta, jnp.inf)
-        rmin = jnp.min(w, axis=1)
-        rarg = jnp.argmin(w, axis=1).astype(jnp.int32)
-        return Neighborhood(
-            scores=make_score(rmin),
-            moves=(ia, rarg),
-            valid=jnp.isfinite(rmin),
-            n_valid=jnp.int32(n - 1),
-        )
+        # The compact row-min neighborhood with G, H and the cost read from
+        # state -- zero matmuls per iteration.
+        return row_min_neighborhood(st.cost, swap_deltas(st.g, st.h))
 
     def move_fp_inc(st, cur_fp, moves, idx):
         a_idx, b_idx = moves
@@ -357,17 +391,23 @@ def make_qap_problem(
         #   G' = G - u gu^T - gu u^T + s u u^T          (exact: small ints)
         #   H' = H - fu gu^T - hu u^T + s fu u^T        (rank-2 f32 adds)
         # The u-outer terms only touch columns a and b, expressed as fused
-        # one-hot broadcasts — no scatters, no gathers.
+        # one-hot broadcasts.  H's entries exceed 2^11, so H u runs at
+        # HIGHEST precision (a TF32 product would round them); so does
+        # u^T gu, whose entries reach twice the largest distance.
         a_idx, b_idx = moves
         a, b = a_idx[idx], b_idx[idx]
         ia = jnp.arange(n, dtype=jnp.int32)
         oa = (ia == a).astype(jnp.float32)
         ob = (ia == b).astype(jnp.float32)
         d = oa - ob  # u as a dense vector
-        gu = st.g @ d
-        hu = st.h @ d
-        fu = flow @ d
-        s = jnp.dot(d, gu)
+        gu = jnp.dot(st.g, d, precision=prec)
+        hu = jnp.dot(st.h, d, precision=jax.lax.Precision.HIGHEST)
+        fu = jnp.dot(flow, d, precision=prec)
+        delta_ab = 2.0 * (
+            st.h[a, b] + st.h[b, a] - st.h[a, a] - st.h[b, b]
+            + 2.0 * flow[a, b] * st.g[a, b]
+        )
+        s = jnp.dot(d, gu, precision=jax.lax.Precision.HIGHEST)
         g2 = (
             st.g
             - d[:, None] * gu[None, :]
@@ -382,13 +422,12 @@ def make_qap_problem(
         )
         pa, pb = st.p[a], st.p[b]
         p2 = st.p.at[a].set(pb).at[b].set(pa)
-        return QAPState(p2, g2, h2)
+        return QAPState(p2, g2, h2, st.cost + delta_ab.astype(jnp.int32))
 
     def perturb_inc(st, is_elite, key):
-        # Perturb the permutation, then REBUILD G and H with the matmuls —
-        # once per round, which also bounds H's f32 drift to one descent.
-        p2 = perturb(st.p, is_elite, key)
-        return QAPState(p2, *_gh_from_p(p2))
+        # Perturb the permutation, then rebuild G, H and the cost -- once
+        # per round.
+        return _state_from_p(perturb(st.p, is_elite, key))
 
     if incremental:
         if nbr_axis is not None:

@@ -230,9 +230,10 @@ def _cat_blocks(blocks):
     scores/fp_deltas arrive as per-block PLANE PAIRS ((hard, soft) /
     (lane0, lane1), each [w]); the planes are concatenated separately and
     stacked into the [W, 2] contract arrays once at the end — concatenating
-    pre-stacked [w, 2] blocks materialized [W, 2] buffers whose (8, 128)
-    tiling pads the trailing dim 64x, and the resulting relayout copies
-    dominated the engine's device time (BENCH_NOTES.md round 3 trace)."""
+    pre-stacked [w, 2] blocks materialized [W, 2] buffers whose tiled
+    layout pads the trailing dim, and the relayout copies dominated a
+    device trace on the hardware this was written for.  Not yet measured on
+    the H100."""
     cat = lambda *xs: jnp.concatenate(xs)
     hard = cat(*[b[0][0] for b in blocks])
     soft = cat(*[b[0][1] for b in blocks])
@@ -250,7 +251,7 @@ def _swap_fp_delta_planes(d1, e1, n1, d2, e2, n2):
     """XOR fingerprint delta of a two-point move as two uint32[...] planes
     (the incremental form of ops/fingerprint.py; ChangeDay has n2 == e2,
     whose hash terms cancel).  Planes, not [..., 2]: wide trailing-2 arrays
-    tile with 64x padding on TPU."""
+    pad under a tiled layout."""
     u = lambda x: x.astype(jnp.uint32)
     a0, a1 = position_hash_planes(d1, u(e1))
     b0, b1 = position_hash_planes(d1, u(n1))
@@ -275,7 +276,7 @@ def make_scheduling_problem(
 ) -> Problem:
     """``proposer``:
 
-    - "dense" (default, the TPU-first neighborhood): every ChangeDay move
+    - "dense" (default, the accelerator-first neighborhood): every ChangeDay move
       (all D days x all E employees) delta-scored as ONE dense [D, E] block
       of shifted full-axis tensor ops — no per-candidate slicing, no
       gathers — plus ``n_swap_offsets`` dense SwapDays diagonals (all days
@@ -284,7 +285,7 @@ def make_scheduling_problem(
       the exact overlapping-region path (close-pair swaps rearrange days
       inside a constraint window without touching totals — the move class
       the >= 14-day diagonals cannot express; adding them closed the
-      measured soft-descent gap vs the random proposer, BENCH_NOTES.md).
+      soft-descent gap vs the random proposer).
       Divergence from the reference's 100-random-move window
       (ref lib.rs:428-491): the engine argmins over this much wider
       neighborhood, the same documented divergence as the nqueens A x n
@@ -295,8 +296,8 @@ def make_scheduling_problem(
       lib.rs:428-491), candidate scores by exact O(R·E) per-candidate delta
       evaluation (27-day regions around the changed days);
     - "rescore": identical sampling to "random", candidates scored by the
-      O(D·E) full-rescore batch (the round-1 path, kept for the measured
-      delta-vs-rescore A/B — bit-identical trajectories to "random");
+      O(D·E) full-rescore batch (kept for the delta-vs-rescore A/B —
+      bit-identical trajectories to "random");
     - "systematic": the reference's deterministic rotate-each-day-through-
       all-successor-employees neighborhood (ref ScheduleMoveProposer,
       lib.rs:493-559 — constructed but commented out at lib.rs:59-60);
@@ -494,9 +495,9 @@ def make_scheduling_problem(
 
         # 27-day region slices for ALL moves as shift-matrix contractions:
         # sl[w, r] = a_pad[d_w + r].  A vmapped dynamic_slice batches the
-        # starts and lowers to a serialized gather on TPU (measured ~10x
-        # the cost of the whole ChangeDay block, bench/sched_isolation.py);
-        # the [W, D] x [REG, D] einsum is one small matmul.
+        # starts and lowers to a gather (which serialized on the hardware
+        # this was written for; not yet measured on the H100); the
+        # [W, D] x [REG, D] einsum is one small matmul.
         a_shift_f = jnp.stack(
             [
                 jax.lax.slice_in_dim(a_pad, r, r + d_days).astype(f32)
@@ -560,7 +561,7 @@ def make_scheduling_problem(
             fp_deltas=jnp.stack(fpd, axis=-1),
         )
 
-    # -- dense-block neighborhood (the TPU hot path) ------------------------
+    # -- dense-block neighborhood (the device hot path) ---------------------
 
     n_off = n_swap_offsets if d_days >= 15 else 0
     n_rand = n_rand_swaps if d_days >= 2 else 0
@@ -578,10 +579,9 @@ def make_scheduling_problem(
         )
 
     # Banded 0/1 window matrices: per-window employee counts and the
-    # windows-containing-day aggregation become single small MXU matmuls.
-    # The cumsum formulation they replace lowers to reduce-window on TPU —
-    # the block's five cumsums measured 1.36 of its 2.3 ms/iter in a device
-    # trace (BENCH_NOTES.md round 3).
+    # windows-containing-day aggregation become single small matmuls, in
+    # place of a cumsum formulation (reduce-window) that was slower on the
+    # hardware this was written for; not yet measured on the H100.
     _band = {}
     for _w in (7, 14):
         if d_days >= _w:
@@ -773,8 +773,7 @@ def make_scheduling_problem(
         # [D, E] XOR per lane plane against the precomputed h(d, e) table,
         # enabling the reference-exact tabu filter at negligible cost (the
         # pick-then-check retry budget exhausted on >50% of soft-phase
-        # iterations on this block, stalling the descent — BENCH_NOTES.md
-        # round 3).
+        # iterations on this block, stalling the descent).
         h_old0, h_old1 = position_hash_planes(iota_d, a.astype(jnp.uint32))
         ch_fpd = (
             (h_old0[:, None] ^ h_de0).reshape(-1),
@@ -788,9 +787,9 @@ def make_scheduling_problem(
             # window deltas via the region path.  Close-pair swaps matter —
             # they rearrange days inside one constraint window without
             # touching per-employee totals, the move class the window-
-            # disjoint diagonals below cannot express (measured: the W=100
-            # random proposer descends the soft score in ~3x fewer rounds
-            # than the diagonal-only dense block on 365d x 20e).
+            # disjoint diagonals below cannot express (the W=100 random
+            # proposer descends the soft score in ~3x fewer rounds than the
+            # diagonal-only dense block on 365d x 20e).
             k_rs1, k_rs2 = jax.random.split(k_rs)
             rs_d1 = jax.random.randint(k_rs1, (n_rand,), 0, d_days, jnp.int32)
             rs_off = jax.random.randint(k_rs2, (n_rand,), 1, d_days, jnp.int32)
@@ -818,10 +817,9 @@ def make_scheduling_problem(
         )
 
         # STATIC unroll over the n_off offsets: a vmapped dynamic_slice
-        # batches the starts and lowers to a gather, which serialized this
-        # whole section to 2.6 of the block's 2.9 ms/iter on chip
-        # (bench/sched_isolation.py); per-offset contiguous dynamic slices
-        # are native TPU ops.
+        # batches the starts and lowers to a gather, which serialized on
+        # the hardware this was written for; per-offset contiguous dynamic
+        # slices avoid it.  Not yet measured on the H100.
         def one_diagonal(delta_j):
             a2 = jax.lax.dynamic_slice(a_ext, (delta_j,), (d_days,))  # [D]
             oh2 = jax.nn.one_hot(a2, n_emp, dtype=f32)                # [D, E]
@@ -896,9 +894,8 @@ def make_scheduling_problem(
         return jnp.where(is_swap[:, None], swp, chg)  # [W, D]
 
     def neighborhood_rescore(assign, _cur_score, key):
-        """Round-1 path: identical move sampling, O(D·E) full rescore per
-        candidate.  Kept for the measured delta-vs-rescore A/B
-        (BENCH_NOTES.md) and as a property-test oracle."""
+        """Identical move sampling, O(D·E) full rescore per candidate.  Kept
+        for the delta-vs-rescore A/B and as a property-test oracle."""
         moves = sample_moves(key)
         cands = materialize(assign, moves)
         scores = jax.vmap(score)(cands)  # [W, 2]

@@ -2,8 +2,8 @@
 
 The reference's tabu set and elite archive key solutions by ``Hash + Ord`` on
 the full solution vector (reference local-search/src/local_search.rs:16-19,
-HashSet membership at local_search.rs:197-199).  Hash sets don't exist on a
-TPU, so solution identity becomes a 64-bit fingerprint:
+HashSet membership at local_search.rs:197-199).  Hash sets don't exist in a
+compiled device program, so solution identity becomes a 64-bit fingerprint:
 
     fp(x) = XOR_i  h(i, x_i)        (per 32-bit lane, two salted lanes)
 
@@ -41,7 +41,7 @@ def position_hash_planes(idx: jax.Array, value_bits: jax.Array) -> tuple:
     """h(i, v) as two separate uint32[...] planes.
 
     Wide batched hashing should stay in planes: a materialized [..., 2]
-    array tiles as (8, 128) on TPU, padding the trailing dim 64x."""
+    array pads its trailing dim under a tiled layout."""
     idx = idx.astype(jnp.uint32)
     value_bits = value_bits.astype(jnp.uint32)
     lanes = []

@@ -7,7 +7,7 @@ a dense ``float32[..., 2]`` tensor — ``score[..., 0]`` is the hard channel,
 ``score[..., 1]`` the soft channel — and comparisons are carried through XLA
 reductions lexicographically:
 
-- ``lex_argmin`` / ``lex_min`` — two-pass masked min (O(W), VPU-friendly,
+- ``lex_argmin`` / ``lex_min`` — two-pass masked min (O(W), fusable,
   no sort needed, stable first-index tie-break like a stable sort).
 - ``lex_top_k`` — XLA multi-key ``lax.sort`` (``num_keys=2``) carrying
   arbitrary payload operands.
@@ -95,7 +95,7 @@ def noisy_lex_select(
     restricted to the k best valid candidates, where
     ``w = hard * scale + soft`` is the scalarized lexicographic key.
 
-    This is the dense-block diffusion knob (VERDICT r4 directive 3): the
+    This is the dense-block diffusion knob: the
     global argmin is maximally exploitative but diffuses poorly along soft
     plateaus; sampling among the top-k keeps the full-width evaluation
     while restoring the random walk a noisy descent gets for free.

@@ -1,40 +1,23 @@
-"""Pallas TPU kernel for the N-Queens neighborhood delta-scoring block.
+"""Pallas kernel (Triton route) for the N-Queens neighborhood delta-scoring block.
 
-Computes the [A, n] candidate-score matrix — for each of A sampled columns,
-the total-conflict score of moving that column's queen to every row — in one
-fused kernel over VMEM-resident counter tables, replacing the XLA op chain
-(per-column dynamic slices + broadcast compares + adds) with a single
-launch.  The delta algebra matches models/nqueens.py (and therefore the
-reference's x2-pair conflict convention, reference examples/nqueens/src/
-lib.rs:74-87):
+Computes the [A, n] candidate-score matrix -- for each of A sampled columns,
+the total-conflict score of moving that column's queen to every row -- plus
+each row's min and first-index argmin.  Same delta algebra as the XLA slice
+path in models/nqueens.py (the reference's x2-pair conflict convention,
+reference examples/nqueens/src/lib.rs:74-87):
 
     score(j, r') = cur + 2 * [ (rc[r'] - [r'==r_j]) + (dc[d'] - [d'==d_j])
                               + (ac[a'] - [a'==a_j]) - removed_j ]
 
-Key TPU considerations (measurements: bench/kernel_iso.py, P=256, n=1000,
-A=50 lockstep iterations):
-
-- all tables fit VMEM; the kernel runs one fori step per sampled column,
-  each emitting one (1, n) lane-aligned row;
-- the dominant cost is the dynamic LANE ROLL that realizes each row's
-  diagonal-table window (Mosaic can't prove dynamic lane offsets are
-  128-aligned, so window extraction is roll-to-lane-0 + aligned static
-  slice).  The two f32 rolls (dc then ac) measured 1.72 of the 2.88
-  ms/iter kernel total.  Two halving schemes fail to lower on the
-  current Mosaic: int16 tables (dynamic rotate requires 32-bit data:
-  "Rotate with non-32-bit data") and packing ac reversed into the high
-  16 bits of one i32 roll (undoing the reversal needs lax.rev, which
-  has no TPU lowering rule) — see bench/kernel_iso.py for both probes;
-- per-column scalars (chosen col, current row, removed term) are
-  scalar-prefetched into SMEM so slice offsets are known at program start;
-- the kernel also emits each row's min and argmin as a byproduct — NOT
-  with per-row scalar reductions into SMEM (those measured +4.3
-  ms/lockstep-iteration, 2.9 -> 7.2), but as one vectorized phase-2 pass
-  over the VMEM-resident block with (delta, lane) packed into a single
-  int32 row-min key.  The engine uses the decoded minima as its first
-  tabu pick (``Neighborhood.hint_idx``), replacing a separate full
-  [A*n] argmin pass over the block in HBM (~0.5 ms/iter,
-  bench/ls_isolation.py).
+Route: Pallas through Triton (``backend="triton"``), for NVIDIA GPUs.  One
+program per sampled column.  Each program reads its diagonal windows
+``dc[n-1-c_j + r']`` and ``ac[c_j + r']`` straight from the counter tables
+at a dynamic offset, loops over the rows in blocks of ``_BLOCK``, writes the
+row and keeps a running min / first-index argmin, so the row reduction needs
+no second pass over the block.  ``make_nqueens_problem`` selects it on a GPU
+only; the XLA reference is ``models.nqueens.block_scores`` (bit-equal,
+tests/test_pallas_kernels.py).  ``interpret=True`` runs it on the CPU for
+tests.
 """
 
 from __future__ import annotations
@@ -44,83 +27,46 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
+
+_BLOCK = 1024
 
 
-def _kernel(
-    n, packed, c_ref, r_ref, removed_ref, cur_ref, rc_ref, dc_ref, ac_ref,
-    out_ref, key_ref,
-):
-    # Shapes are lane-padded: rc [1, n_pad], dc/ac [1, 2*n_pad], out [A, n_pad].
-    n_pad = rc_ref.shape[1]
-    a = out_ref.shape[0]
+def _kernel(n, n_chunks, c_ref, r_ref, removed_ref, cur_ref, rc_ref, dc_ref,
+            ac_ref, out_ref, min_ref, arg_ref):
+    j = pl.program_id(0)
+    c_j = c_ref[j]
+    r_j = r_ref[j]
+    removed_j = removed_ref[j]
     cur = cur_ref[0]
-    rp = jax.lax.broadcasted_iota(jnp.int32, (1, n_pad), 1)
-    rc = rc_ref[0, :].reshape(1, n_pad)
-    dc_full = dc_ref[0, :].reshape(1, 2 * n_pad)
-    ac_full = ac_ref[0, :].reshape(1, 2 * n_pad)
+    lane = jnp.arange(_BLOCK, dtype=jnp.int32)
 
-    def body(j, _):
-        c_j = c_ref[j]
-        r_j = r_ref[j]
-        removed_j = removed_ref[j]
-        # Two dynamic rolls per row (dc and ac windows).  Sharing ONE roll
-        # by packing ac reversed into the high 16 bits fails to lower:
-        # Mosaic implements neither 16-bit dynamic rotate ("Rotate with
-        # non-32-bit data") nor lax.rev (the static flip that would undo
-        # the reversal).  No wraparound contamination: window start
-        # o = n-1-c_j <= n-1 and reads stay within the 2*n_pad table.
-        dc_sl = pltpu.roll(dc_full, c_j - (n - 1), axis=1)[:, :n_pad]
-        ac_sl = pltpu.roll(ac_full, -c_j, axis=1)[:, :n_pad]
-        same_r = (rp == r_j).astype(jnp.float32)
-        # rp - c_j + n-1 == r_j - c_j + n-1  <=>  rp == r_j; likewise for the
-        # anti-diagonal — within its own column only the no-op move back to
-        # r_j re-shares the vacated queen's lines.
-        added = (rc - same_r) + (dc_sl - same_r) + (ac_sl - same_r)
-        out_ref[pl.ds(j, 1), :] = cur + 2.0 * (added - removed_j)
-        return 0
+    def body(k, carry):
+        best, arg = carry
+        base = k * _BLOCK
+        rp = base + lane
+        rc = plgpu.load(rc_ref.at[pl.ds(base, _BLOCK)])
+        dc = plgpu.load(dc_ref.at[pl.ds(n - 1 - c_j + base, _BLOCK)])
+        ac = plgpu.load(ac_ref.at[pl.ds(c_j + base, _BLOCK)])
+        same = (rp == r_j).astype(jnp.float32)
+        s = cur + 2.0 * ((rc - same) + (dc - same) + (ac - same) - removed_j)
+        live = rp < n
+        plgpu.store(out_ref.at[j, pl.ds(base, _BLOCK)], s, mask=live)
+        s = jnp.where(live, s, jnp.inf)
+        m = jnp.min(s)
+        a = jnp.min(jnp.where(s == m, rp, jnp.iinfo(jnp.int32).max))
+        better = m < best  # strict: an earlier block keeps its tie
+        return jnp.where(better, m, best), jnp.where(better, a, arg)
 
-    jax.lax.fori_loop(0, a, body, 0)
-
-    # Phase 2 — per-row min+argmin as a vectorized pass over the
-    # VMEM-resident block.  Per-row scalar reductions with SMEM stores
-    # inside the fori measured +4.3 ms/lockstep-iteration (2.9 -> 7.2,
-    # bench/ls_isolation.py); these passes are a handful of [A, n_pad]
-    # vector ops.  Both modes emit key_ref as int32[A, 2] =
-    # (delta_min, argmin_lane); ties in delta resolve to the smaller
-    # lane, matching lex_argmin's first-index rule.
-    block = out_ref[...]
-    rp_b = jax.lax.broadcasted_iota(jnp.int32, (a, n_pad), 1)
-    delta = (block - cur).astype(jnp.int32)
-    big = jnp.iinfo(jnp.int32).max
-    if packed:
-        # Small boards: the score delta (a bounded small integer in
-        # [-6n, 6n]) and the lane index pack into one int32 key, so a
-        # SINGLE row-min yields value AND first-index argmin:
-        #     key = (delta + 6n) * n_pad + lane     (exact: < 12n * n_pad)
-        # The padded-lane sentinel must exceed every legitimate key; the
-        # caller selects this mode only while keys stay < 2^31 - 1
-        # (n <= ~13k), where int32 max is strictly larger.
-        key = (delta + 6 * n) * n_pad + rp_b
-        key = jnp.where(rp_b < n, key, big)
-        kmin = jnp.min(key, axis=1, keepdims=True)  # [A, 1]
-        key_ref[:, 0:1] = kmin // n_pad - 6 * n
-        key_ref[:, 1:2] = kmin % n_pad
-    else:
-        # Large boards (the packing would overflow int32): two passes —
-        # row-min of the masked delta, then row-min of the lane index
-        # over the delta-min positions.  One extra [A, n_pad] sweep buys
-        # an unbounded n (VMEM capacity becomes the only limit).
-        dmask = jnp.where(rp_b < n, delta, big)
-        dmin = jnp.min(dmask, axis=1, keepdims=True)  # [A, 1]
-        lane = jnp.where(dmask == dmin, rp_b, big)
-        key_ref[:, 0:1] = dmin
-        key_ref[:, 1:2] = jnp.min(lane, axis=1, keepdims=True)
+    best, arg = jax.lax.fori_loop(
+        0, n_chunks, body, (jnp.float32(jnp.inf), jnp.int32(0))
+    )
+    min_ref[j] = best
+    arg_ref[j] = arg
 
 
 @functools.partial(jax.jit, static_argnames=("interpret",))
-def nqueens_neighborhood_scores(
-    rows: jax.Array,     # int32[n] (unused; kept for API symmetry)
+def nqueens_block_kernel(
     rc: jax.Array,       # float32[n]
     dc: jax.Array,       # float32[2n-1]
     ac: jax.Array,       # float32[2n-1]
@@ -133,46 +79,22 @@ def nqueens_neighborhood_scores(
     """Returns (scores float32[A, n], row_min float32[A], row_arg int32[A])."""
     n = rc.shape[0]
     a = c.shape[0]
-    del rows
-    n_pad = ((n + 127) // 128) * 128
-    # The single-pass (delta, lane) int32 key packing is exact only while
-    # every key stays strictly below the int32-max padded-lane sentinel
-    # (n <= ~13k); larger boards take the two-pass row-min (one extra
-    # [A, n_pad] sweep, no bound) — see _kernel phase 2.
-    packed = 12 * n * (n_pad + 1) < 2**31 - 1
-    rc_p = jnp.zeros((1, n_pad), jnp.float32).at[0, :n].set(rc)
-    dc_p = jnp.zeros((1, 2 * n_pad), jnp.float32).at[0, : 2 * n - 1].set(dc)
-    ac_p = jnp.zeros((1, 2 * n_pad), jnp.float32).at[0, : 2 * n - 1].set(ac)
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=4,  # c, r, removed, cur_hard
-        grid=(1,),
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.VMEM),  # rc (full, VMEM-resident)
-            pl.BlockSpec(memory_space=pltpu.VMEM),  # dc
-            pl.BlockSpec(memory_space=pltpu.VMEM),  # ac
-        ],
-        out_specs=(
-            pl.BlockSpec((a, n_pad), lambda *_: (0, 0)),
-            pl.BlockSpec((a, 2), lambda *_: (0, 0)),
-        ),
-    )
-    out, key = pl.pallas_call(
-        functools.partial(_kernel, n, packed),
-        grid_spec=grid_spec,
+    n_chunks = -(-n // _BLOCK)
+    n_pad = n_chunks * _BLOCK
+    # Zero-pad the tables so every block read stays in bounds.
+    rc_p = jnp.pad(rc, (0, n_pad - n))
+    dc_p = jnp.pad(dc, (0, n_pad - n))
+    ac_p = jnp.pad(ac, (0, n_pad - n))
+    return pl.pallas_call(
+        functools.partial(_kernel, n, n_chunks),
+        grid=(a,),
         out_shape=(
-            jax.ShapeDtypeStruct((a, n_pad), jnp.float32),
-            jax.ShapeDtypeStruct((a, 2), jnp.int32),
+            jax.ShapeDtypeStruct((a, n), jnp.float32),
+            jax.ShapeDtypeStruct((a,), jnp.float32),
+            jax.ShapeDtypeStruct((a,), jnp.int32),
         ),
+        compiler_params=plgpu.CompilerParams(num_warps=4, num_stages=1),
+        backend="triton",
         interpret=interpret,
-    )(
-        c,
-        r,
-        removed,
-        cur_hard.reshape(1),
-        rc_p,
-        dc_p,
-        ac_p,
-    )
-    row_min = cur_hard + key[:, 0].astype(jnp.float32)
-    row_arg = key[:, 1]
-    return out[:, :n], row_min, row_arg
+        name="nqueens_block",
+    )(c, r, removed, cur_hard.reshape(1), rc_p, dc_p, ac_p)

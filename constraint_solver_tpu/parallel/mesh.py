@@ -1,14 +1,16 @@
 """Device mesh helpers.
 
 The reference has zero parallelism (single thread, SURVEY.md §2.5); the
-TPU-native scale-out story is a ``jax.sharding.Mesh`` with two logical axes:
+scale-out story here is a ``jax.sharding.Mesh`` with two logical axes:
 
 - ``pop`` — data-parallel axis over independent ILS trajectories;
 - ``nbr`` — tensor-parallel axis over a single trajectory's candidate
   neighborhood (used for very large instances).
 
-On one chip both axes are size 1; on a pod slice XLA rides ICI for the
-collectives (psum/all_gather for elite exchange and neighborhood argmin).
+On one device both axes are size 1.  The GPUs of one host are joined all
+to all by NVLink, so the mesh's shape follows the algorithm alone; XLA
+hands the collectives (psum/all_gather for elite exchange and neighborhood
+argmin) to NCCL.
 """
 
 from __future__ import annotations

@@ -3,14 +3,14 @@ population state as the search progresses.
 
 The reference cannot express this — its engine parameters are fixed for the
 whole run (reference local-search/src/iterated_local_search.rs:96-155) — but
-the TPU engine's ``IlsState`` pytree is *program-independent*: engine
+the device engine's ``IlsState`` pytree is *program-independent*: engine
 parameters (ls_max, bail, neighborhood shape, even the PROPOSER) are
 trace-time constants, not state, so switching programs mid-run is a plain
 handoff of the same arrays to a different compiled executable.
 ``PhasedPopulationSolver`` packages that handoff behind the standard driver
 API.
 
-Measured role (round-4 quality sweeps, BENCH_NOTES.md): phase schedules
+Role (quality sweeps on earlier hardware): phase schedules
 mixing the dense-argmin proposer with the reference-shaped random-window
 proposer were the instrument that localized the scheduling quality gap —
 the sweep's verdict was that the random-window program wins the race at

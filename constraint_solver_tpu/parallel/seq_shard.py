@@ -2,7 +2,7 @@
 
 The reference's long axis is the schedule's date axis, scored with sliding
 windows of width 2/7/9/14 (reference examples/employee-scheduling/src/
-lib.rs:285-339).  SURVEY.md §5 names the TPU-native equivalent: for very
+lib.rs:285-339).  SURVEY.md §5 names the device-native equivalent: for very
 long schedules, shard the date axis over a mesh axis and exchange a
 (max-window - 1)-day **halo** with the successor shard — the exact analog of
 sequence/context parallelism's halo exchange in windowed attention.

@@ -1,14 +1,14 @@
 """2D-sharded solving: population data-parallel x neighborhood tensor-parallel.
 
 The reference is single-threaded (SURVEY.md §2.5); this module is the scale-
-out path the TPU design replaces it with.  One SPMD program over a
+out path this design replaces it with.  One SPMD program over a
 ``Mesh(pop, nbr)``:
 
 - the trajectory population is sharded over ``pop`` (data parallel);
 - within every trajectory, the candidate-neighborhood axis is sharded over
   ``nbr`` (the tensor-parallel analog): each device scores its slice of the
   sampled columns, takes a local top-k, and an ``all_gather`` over ``nbr``
-  (ICI) rebuilds a small global candidate list for the engine's
+  rebuilds a small global candidate list for the engine's
   pick-then-check selection;
 - trajectory state is replicated across ``nbr`` and stays consistent because
   every shard runs the identical deterministic update;

@@ -41,15 +41,13 @@ def scheduling_cli(seed: str = "42") -> SolverConfig:
 
 
 def scheduling_quality(seed: str = "42") -> SolverConfig:
-    """The measured quality-at-wall production configuration (round-4
-    sweeps, BENCH_NOTES.md): the reference CLI engine constants with the
-    bench-measured archive/ring capacities, meant to drive a
-    ``PopulationSolver`` over ``make_scheduling_problem(spec,
+    """The quality-at-wall production configuration: the reference CLI
+    engine constants with bench-chosen archive/ring capacities, meant to
+    drive a ``PopulationSolver`` over ``make_scheduling_problem(spec,
     proposer="random", window_size=100)`` with ``exchange_every=2``,
-    ``cull_frac=0.25`` and population 64-128.  Beats the complete
-    single-thread reference algorithm's best score at every measured wall
-    budget by 2-4 soft points (median (0,7) at 2.3/10/60 s on 365d x 20e
-    vs the baseline's (0,10-11)/(0,9)/(0,8) — BENCH_NOTES.md round 4)."""
+    ``cull_frac=0.25`` and population 64-128.  Chosen by quality-at-wall
+    sweeps against the C++ reference baseline on earlier hardware; not yet
+    measured on the H100."""
     return SolverConfig(
         seed=seed,
         local_search_max_iterations=1_000,
@@ -62,18 +60,14 @@ def scheduling_quality(seed: str = "42") -> SolverConfig:
 
 
 def scheduling_dense_quality(seed: str = "42") -> SolverConfig:
-    """The measured NOISY-DENSE quality configuration (round-5 A/B,
-    bench/sched_quality_r5.py + BENCH_NOTES.md): the dense all-moves
-    proposer (``make_scheduling_problem(spec, proposer="dense",
-    n_rand_swaps=256)``) with the applied move Gumbel-sampled from the 64
-    best candidates at temperature 0.5 instead of the global argmin.
-    Beats the complete single-thread reference algorithm at every
-    measured wall budget on 365d x 20e — medians (0,8)/(0,8)/(0,7) vs
-    (0,11)/(0,9)/(0,8) at 2.3/10/60 s over a P=64 population with elite
-    exchange every 2 rounds — where the same configuration with argmin
-    selection loses by one point everywhere.  ``scheduling_quality``
-    (the random-window population) remains the overall champion; this is
-    the TPU-native dense alternative."""
+    """The NOISY-DENSE quality configuration (bench/sched_quality_r5.py):
+    the dense all-moves proposer (``make_scheduling_problem(spec,
+    proposer="dense", n_rand_swaps=256)``) with the applied move
+    Gumbel-sampled from the 64 best candidates at temperature 0.5 instead
+    of the global argmin, over a P=64 population with elite exchange every
+    2 rounds.  ``scheduling_quality`` (the random-window population) is
+    the other quality mode; this is the dense alternative.  Chosen on
+    earlier hardware; not yet measured on the H100."""
     return SolverConfig(
         seed=seed,
         local_search_max_iterations=200,

@@ -4,7 +4,9 @@ The reference has no profiling at all (ad-hoc println only); here:
 
 - ``trace(logdir)`` — context manager around ``jax.profiler`` capturing a
   device trace viewable in TensorBoard/Perfetto.  Degrades to a no-op with
-  a warning when the backend can't profile (e.g. tunneled test rigs).
+  a warning when the backend can't profile.  A measurement that needs the
+  trace must not use it: call ``jax.profiler`` directly so a failure
+  raises.
 - ``annotate(name)`` — named TraceAnnotation for host-side phases.
 """
 

@@ -1,22 +1,17 @@
-"""Roofline / MFU accounting from XLA's compiled-program cost analysis.
+"""Roofline accounting from XLA's compiled-program cost analysis.
 
-The reference has no perf accounting at all (SURVEY.md §5 tracing row); the
-TPU framework reports, per solver program:
+The reference has no perf accounting at all (SURVEY.md §5 tracing row); here
+each solver program reports:
 
-- FLOP/s and %-of-peak (MFU) against the chip's MXU peaks,
-- HBM traffic and %-of-peak bandwidth,
-- arithmetic intensity (flops/byte), which classifies each domain as
-  compute-bound (QAP's matmul deltas) or memory/VPU-bound (nqueens'
-  elementwise delta chains) on the roofline.
+- achieved FLOP/s as a fraction of the device's tensor-core (bf16, TF32)
+  and non-tensor-core float32 peaks,
+- device-memory traffic as a fraction of peak bandwidth,
+- arithmetic intensity (flops/byte).
 
-Flop/byte counts come from ``compiled.cost_analysis()`` — XLA's own
-accounting of the optimized HLO — not hand-maintained per-domain constants,
-so they stay correct as kernels evolve.  Peaks are public chip specs
-(approximate; see PEAKS), defaulting to TPU v5e. MFU here is utilization of
-the bf16 MXU peak; solver hot loops are mostly f32 VPU work, so also read
-``vpu_frac`` (vs the ~2 TFLOP/s-class VPU) and ``hbm_frac`` before calling
-a kernel slow — a VPU-bound op at 1% "MXU MFU" may still be at the
-hardware's speed of light.
+Flop/byte counts come from ``compiled.cost_analysis()`` -- XLA's own
+accounting of the optimized HLO.  Peaks come from ``PEAKS``, keyed by
+``jax.Device.device_kind``; a device that is not in the table is an error,
+never a default.
 """
 
 from __future__ import annotations
@@ -26,42 +21,38 @@ from typing import Any
 
 
 @dataclasses.dataclass(frozen=True)
-class ChipPeaks:
-    name: str
-    mxu_bf16: float  # FLOP/s
-    mxu_f32: float   # FLOP/s (MXU f32-accumulate path, ~half bf16)
-    vpu_f32: float   # FLOP/s (vector unit, approximate)
-    hbm_bw: float    # bytes/s
+class DevicePeaks:
+    device_kind: str
+    bf16: float    # FLOP/s, tensor cores, dense
+    tf32: float    # FLOP/s, tensor cores, dense
+    f32: float     # FLOP/s outside the tensor cores
+    hbm_bw: float  # bytes/s
+    source: str
 
 
-# Public spec numbers (approximate where unpublished).
 PEAKS = {
-    "v5e": ChipPeaks("v5e", 197e12, 98.5e12, 2.0e12, 819e9),
-    "v5p": ChipPeaks("v5p", 459e12, 229.5e12, 4.0e12, 2765e9),
-    "cpu": ChipPeaks("cpu", 1e11, 1e11, 1e11, 5e10),  # rough host fallback
+    p.device_kind: p
+    for p in (
+        DevicePeaks(
+            "NVIDIA H100 80GB HBM3", 989e12, 495e12, 67e12, 3.35e12,
+            source="NVIDIA H100 Tensor Core GPU data sheet, SXM5, dense",
+        ),
+    )
 }
 
 
-def detect_peaks() -> ChipPeaks:
-    import jax
-
-    dev = jax.devices()[0]
-    kind = getattr(dev, "device_kind", "").lower()
-    if "v5p" in kind or "v5 p" in kind:
-        return PEAKS["v5p"]
-    if "v5" in kind:  # "TPU v5 lite" = v5e
-        return PEAKS["v5e"]
-    if dev.platform == "cpu":
-        return PEAKS["cpu"]
-    return PEAKS["v5e"]
+def peaks_for(device_kind: str) -> DevicePeaks:
+    """The peaks of ``device_kind``; raises ``KeyError`` for any device the
+    table does not list (the CPU included)."""
+    if device_kind not in PEAKS:
+        raise KeyError(f"no published peaks for device kind {device_kind!r}")
+    return PEAKS[device_kind]
 
 
 def cost_analysis(jitted, *args) -> dict[str, float]:
-    """XLA-accounted flops / HBM bytes of one call of a jitted program."""
-    compiled = jitted.lower(*args).compile()
-    ca = compiled.cost_analysis()
-    if isinstance(ca, list):  # older jax returns [dict]
-        ca = ca[0] if ca else {}
+    """XLA-accounted flops / device-memory bytes of one call of a jitted
+    program."""
+    ca = jitted.lower(*args).compile().cost_analysis()
     return {
         "flops": float(ca.get("flops", 0.0)),
         "bytes": float(ca.get("bytes accessed", 0.0)),
@@ -73,19 +64,18 @@ def roofline(
     bytes_per_call: float,
     calls: int,
     wall_s: float,
-    peaks: ChipPeaks | None = None,
+    peaks: DevicePeaks,
 ) -> dict[str, Any]:
     """Measured roofline point: achieved FLOP/s + fractions of each peak."""
-    peaks = peaks or detect_peaks()
     f = flops_per_call * calls / wall_s
     b = bytes_per_call * calls / wall_s
     return {
-        "chip": peaks.name,
+        "device_kind": peaks.device_kind,
         "flops_per_sec": f,
         "hbm_bytes_per_sec": b,
-        "mfu_bf16": f / peaks.mxu_bf16,
-        "mfu_f32": f / peaks.mxu_f32,
-        "vpu_frac": f / peaks.vpu_f32,
+        "frac_bf16": f / peaks.bf16,
+        "frac_tf32": f / peaks.tf32,
+        "frac_f32": f / peaks.f32,
         "hbm_frac": b / peaks.hbm_bw,
         "intensity_flops_per_byte": (flops_per_call / bytes_per_call)
         if bytes_per_call
@@ -98,21 +88,24 @@ def chunk_roofline(
     state,
     rounds: int,
     wall_s: float,
+    peaks: DevicePeaks,
     chunk: int = 2,
 ) -> dict[str, Any]:
     """Roofline of a solver's jitted chunk program over a measured solve.
 
     XLA's cost analysis of one ``chunk_jit(state, chunk)`` call gives
     flops/bytes per round; scaling by the solve's executed ``rounds`` over
-    its measured ``wall_s`` yields the achieved FLOP/s / HBM-bandwidth
-    point.  Lowers and compiles one fresh program instance (the live jit
-    cache is not reachable through ``.lower()``), so call this after a
-    solve, never inside one.
+    its measured ``wall_s`` yields the achieved FLOP/s / bandwidth point.
+    Lowers and compiles one fresh program instance (the live jit cache is
+    not reachable through ``.lower()``), so call this after a solve, never
+    inside one.
     """
     ca = cost_analysis(chunk_jit, state, chunk)
     per_round_flops = ca["flops"] / chunk
     per_round_bytes = ca["bytes"] / chunk
-    out = roofline(per_round_flops, per_round_bytes, max(rounds, 1), max(wall_s, 1e-9))
+    out = roofline(
+        per_round_flops, per_round_bytes, max(rounds, 1), max(wall_s, 1e-9), peaks
+    )
     out["flops_per_round"] = per_round_flops
     out["hbm_bytes_per_round"] = per_round_bytes
     out["rounds"] = rounds
@@ -122,9 +115,9 @@ def chunk_roofline(
 
 def format_roofline(r: dict[str, Any]) -> str:
     return (
-        f"[{r['chip']}] {r['flops_per_sec']:.3g} FLOP/s "
-        f"(MFU bf16 {100 * r['mfu_bf16']:.2f}%, f32 {100 * r['mfu_f32']:.2f}%, "
-        f"VPU {100 * r['vpu_frac']:.1f}%), "
+        f"[{r['device_kind']}] {r['flops_per_sec']:.3g} FLOP/s "
+        f"(bf16 {100 * r['frac_bf16']:.2f}%, TF32 {100 * r['frac_tf32']:.2f}%, "
+        f"f32 {100 * r['frac_f32']:.2f}% of peak), "
         f"HBM {r['hbm_bytes_per_sec'] / 1e9:.1f} GB/s "
         f"({100 * r['hbm_frac']:.1f}% of peak), "
         f"intensity {r['intensity_flops_per_byte']:.2f} flop/B"

@@ -29,7 +29,8 @@ echo "== timed geometry bench (ref geom_benchmark.rs analog) =="
 python bench/geom_bench.py
 
 echo "== baseline bench binaries =="
-g++ -O3 -march=native -o /tmp/baseline_nqueens bench/baseline_nqueens.cc
-g++ -O3 -march=native -o /tmp/baseline_scheduling bench/baseline_scheduling.cc
-echo "built: /tmp/baseline_nqueens /tmp/baseline_scheduling"
+mkdir -p build
+g++ -O3 -march=native -o build/baseline_nqueens bench/baseline_nqueens.cc
+g++ -O3 -march=native -o build/baseline_scheduling bench/baseline_scheduling.cc
+echo "built: build/baseline_nqueens build/baseline_scheduling"
 echo "OK"

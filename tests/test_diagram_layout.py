@@ -2,7 +2,7 @@
 
 The reference never wired its diagram geometry into the solver (empty
 DiagramSpecification/DiagramSolution at reference main.rs:7-9); these tests
-cover the TPU-native completion of that domain: dense scoring vs a host
+cover the device-native completion of that domain: dense scoring vs a host
 oracle, delta == full-rescore property, end-to-end solve to zero overlaps,
 and connector routing over the C++ visibility graph.
 """

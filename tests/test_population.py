@@ -1,5 +1,5 @@
 """Population layer tests on the virtual 8-device CPU mesh (SURVEY.md §4:
-fake-multi-device tests are the TPU-world mock backend)."""
+fake-multi-device tests stand in for a multi-device backend)."""
 
 import jax
 import numpy as np
@@ -165,7 +165,7 @@ def test_chunk_size_independent_trajectories():
 
 
 def test_chunk_traced_matches_chunk_and_is_monotone():
-    """The traced chunk program (VERDICT r4 directive 5) must leave the
+    """The traced chunk program must leave the
     solver state bit-identical to the untraced program, and its per-round
     (round, best-hard, best-soft) rows must be the monotone elite-best
     series ending at the post-chunk global best."""
@@ -190,7 +190,7 @@ def test_chunk_traced_matches_chunk_and_is_monotone():
 
 
 def test_cull_rank_lex_vs_hard_on_soft_plateau():
-    """VERDICT r4 directive 2: on a hard-score plateau (every lane at
+    """On a hard-score plateau (every lane at
     hard=0, the state the quality race lives in), lexicographic cull rank
     recycles the worst-SOFT lanes; hard-only rank degenerates to
     lane-index order and recycles a fixed set regardless of soft."""

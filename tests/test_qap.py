@@ -1,4 +1,4 @@
-"""QAP domain tests: MXU all-pairs swap deltas vs naive rescoring, engine
+"""QAP domain tests: all-pairs swap deltas vs naive rescoring, engine
 integration, brute-force optimality on a tiny instance."""
 
 import itertools
@@ -6,11 +6,14 @@ import itertools
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from constraint_solver_tpu.core.ils import Solver, SolverConfig
 from constraint_solver_tpu.models.qap import (
     QAPSpec,
+    exactness_precision,
     make_qap_problem,
+    qap_cost_int32,
     qap_cost_naive,
 )
 
@@ -320,8 +323,8 @@ def test_incremental_ils_finds_brute_force_optimum_n7():
 def test_neighborhood_n_valid_matches_mask():
     """Neighborhood.n_valid contract (core/problem.py): the algebraic
     candidate count must equal the mask's population count.  (A
-    proposer-computed hint_idx was tried and reverted — the per-lane
-    dynamic row slice serialized on TPU; see models/qap.py.)"""
+    proposer-computed hint_idx was tried and reverted: its per-lane
+    dynamic row slice lowered to a serialized gather.)"""
     import jax
 
     for seed in range(3):
@@ -332,3 +335,124 @@ def test_neighborhood_n_valid_matches_mask():
         nb = problem.neighborhood(p, problem.score(p), key)
         assert nb.hint_idx is None
         assert int(nb.n_valid) == int(np.sum(np.asarray(nb.valid)))
+
+
+def _walk_incremental_descent(spec, steps):
+    """Greedy descent on the incremental problem: after every applied swap
+    the carried G, H and cost must equal a float64 host rebuild exactly, and
+    every accepted score must be the float32 rounding of the exact cost."""
+    from constraint_solver_tpu.ops.lex import lex_argmin
+
+    flow, dist = spec.arrays()
+    flow64 = flow.astype(np.float64)
+    inc = make_qap_problem(spec, incremental=True)
+    st = inc.init(jax.random.key(0))
+    cur = inc.score(st)
+    for step in range(steps):
+        nb = inc.neighborhood(st, cur, jax.random.key(step))
+        w = int(lex_argmin(nb.scores, nb.valid))
+        st = inc.apply_move(st, nb.moves, w)
+        cur = nb.scores[w]
+        pn = np.asarray(st.p)
+        g_want = dist[np.ix_(pn, pn)].astype(np.float64)
+        np.testing.assert_array_equal(np.asarray(st.g), g_want)
+        np.testing.assert_array_equal(np.asarray(st.h), flow64 @ g_want)
+        exact = qap_cost_naive(flow, dist, pn)
+        assert int(st.cost) == exact
+        assert float(np.asarray(cur)[0]) == np.float32(exact)
+
+
+def test_scores_exact_above_float32_integer_range():
+    """Costs beyond 2^24 (not every integer is a float32): the compact and
+    incremental scores are the float32 rounding of the exact integer cost,
+    never a float sum's rounding error or drift."""
+    spec = QAPSpec.random(200, seed=3, max_val=100)
+    flow, dist = spec.arrays()
+    comp = make_qap_problem(spec, compact=True)
+    p = comp.init(jax.random.key(1))
+    exact = qap_cost_naive(flow, dist, np.asarray(p))
+    assert exact > 2**24
+    assert float(np.asarray(comp.score(p))[0]) == np.float32(exact)
+    _walk_incremental_descent(spec, steps=8)
+
+
+def test_non_integer_instance_rejected():
+    spec = QAPSpec(flow=((0.0, 0.5), (0.5, 0.0)), dist=((0.0, 1.0), (1.0, 0.0)))
+    with pytest.raises(ValueError, match="integer"):
+        make_qap_problem(spec)
+
+
+def _pair_spec(x, y):
+    return QAPSpec(flow=((0, x), (x, 0)), dist=((0, y), (y, 0)))
+
+
+@pytest.mark.parametrize("y,ok", [(1295, True), (1296, False)])
+def test_float32_delta_bound(y, ok):
+    """The largest float32 intermediate, 10 * 1295 * y here, must stay
+    within 2^24: y = 1295 is just inside, y = 1296 just past."""
+    spec = _pair_spec(1295, y)
+    if ok:
+        p = make_qap_problem(spec, incremental=True)
+        assert int(p.init(jax.random.key(0)).cost) == 2 * 1295 * y
+    else:
+        with pytest.raises(ValueError, match="float32"):
+            make_qap_problem(spec)
+
+
+@pytest.mark.parametrize("v,ok", [(511, True), (512, False)])
+def test_int32_cost_bound(v, ok):
+    """n = 2049, flows v and distances 1 off the diagonal: the cost bound
+    2049 * 2048 * v passes 2^31 at v = 512 (float bounds hold for both)."""
+    n = 2049
+    off = 1 - np.eye(n, dtype=np.float32)
+    if ok:
+        assert exactness_precision(v * off, off) is None
+    else:
+        with pytest.raises(ValueError, match="int32"):
+            exactness_precision(v * off, off)
+
+
+@pytest.mark.parametrize("x,want", [
+    (2048, None), (2049, jax.lax.Precision.HIGHEST)])
+def test_precision_for_values_past_tf32(x, want):
+    """TF32 holds integers up to 2^11; larger values ask for HIGHEST."""
+    flow, dist = _pair_spec(x, 1).arrays()
+    assert exactness_precision(flow, dist) == want
+
+
+def test_incremental_exact_with_values_past_tf32():
+    """An instance with flows past 2^11 (HIGHEST-precision products) keeps
+    the incremental G, H and cost exact through a descent."""
+    rng = np.random.default_rng(5)
+    n = 12
+    flow = np.triu(rng.integers(0, 2600, (n, n)), 1)
+    dist = np.triu(rng.integers(0, 2, (n, n)), 1)
+    spec = QAPSpec(flow=tuple(map(tuple, (flow + flow.T).tolist())),
+                   dist=tuple(map(tuple, (dist + dist.T).tolist())))
+    assert exactness_precision(*spec.arrays()) == jax.lax.Precision.HIGHEST
+    _walk_incremental_descent(spec, steps=8)
+
+
+def test_cli_checks_device_int32_cost():
+    """The device's int32 rescore the QAP CLI compares with the host
+    oracle equals it exactly, also past 2^24."""
+    spec = QAPSpec.random(200, seed=3, max_val=100)
+    flow, dist = spec.arrays()
+    p = np.random.default_rng(0).permutation(200)
+    want = qap_cost_naive(flow, dist, p)
+    assert want > 2**24
+    assert int(qap_cost_int32(flow, dist, jnp.asarray(p))) == want
+
+
+@pytest.mark.gpu
+def test_incremental_update_exact_on_gpu():
+    """On the GPU an f32 product may run in TF32, which rounds operands above
+    2^11.  The incremental H (entries ~1e4 here) must still update exactly
+    even when TF32 is the default, so H u asks for HIGHEST precision
+    (models/qap.py)."""
+    if jax.devices()[0].platform != "gpu":
+        pytest.skip("needs a GPU")
+    spec = QAPSpec.random(512, seed=0)
+    assert float(np.max(np.asarray(spec.arrays()[0]))) * 512 > 2**11
+    with jax.default_matmul_precision("tensorfloat32"):
+        _walk_incremental_descent(spec, steps=12)

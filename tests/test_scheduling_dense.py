@@ -95,13 +95,11 @@ def test_dense_block_covers_all_changedays():
 
 
 def test_dense_noisy_selection_end_to_end():
-    """VERDICT r4 directive 3: select_topk > 1 samples the applied move
-    from the top-k of the dense block.  The solver must still reach the
+    """select_topk > 1 samples the applied move from the top-k of the dense
+    block.  The solver must still reach the
     reference-quality region, its recorded best must pass the independent
     full-rescore integrity check, and the trajectory must actually differ
-    from the argmin engine's (the noise is live).  (This test replaced an
-    exact duplicate of test_dense_solver_end_to_end left behind by the
-    round-4 compound-slot retirement.)"""
+    from the argmin engine's (the noise is live)."""
     spec = _spec(31, 7)
     problem = make_scheduling_problem(spec, proposer="dense")
 
@@ -155,9 +153,7 @@ def test_fp_deltas_match_applied_fingerprints(proposer):
 
 def test_dense_solver_end_to_end():
     """Engine + dense proposer reach the reference-quality region on the
-    31d x 7e instance.  (The compound-move slot that used to ride on this
-    block was retired in round 4: the quality A/B measured equal medians at
-    every wall budget — BENCH_NOTES.md round 4.)"""
+    31d x 7e instance."""
     spec = _spec(31, 7)
     problem = make_scheduling_problem(spec, proposer="dense")
     cfg = SolverConfig(

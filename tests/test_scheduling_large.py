@@ -12,7 +12,7 @@ from constraint_solver_tpu.models.scheduling import (
     ScheduleSpec,
     make_scheduling_problem,
 )
-from tests.test_scheduling_scoring import oracle_score
+from constraint_solver_tpu.utils.oracles import scheduling_score as oracle_score
 
 
 def _large_spec():

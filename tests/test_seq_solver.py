@@ -1,5 +1,5 @@
 """Date-sharded SOLVER correctness: trajectory identity with the dense
-solver (VERDICT round-1 item 4 — seq_shard becomes a solver, not a scorer).
+solver (seq_shard as a solver, not only a scorer).
 
 The sharded solve runs the unchanged ILS engine inside a shard_map over a
 4-device ``seq`` mesh with the day axis sharded; every candidate score is
@@ -143,7 +143,7 @@ def test_popseq_exchange_on_vs_off():
 
 def test_popseq_checkpoint_roundtrip(tmp_path):
     """save/load on the pop x seq solver: a resumed solve must be
-    bit-identical to an uninterrupted one (driver parity, VERDICT #2)."""
+    bit-identical to an uninterrupted one (driver parity)."""
     spec = _spec(64, 7)
     cfg = _cfg(8)
     mk = lambda: SeqShardedSolver(

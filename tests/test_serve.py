@@ -216,7 +216,7 @@ def test_mismatched_holiday_lists_rejected(server_url):
 
 
 def test_ui_shaped_holiday_payload_drives_h1(server_url):
-    """VERDICT round-1 missing item 1: the served UI now posts per-employee
+    """The served UI posts per-employee
     holiday lists (add/remove rows).  A UI-shaped payload where the ONLY
     employee is on holiday every single day forces H1 = num_days — the hard
     score must report exactly those violations."""
@@ -280,8 +280,8 @@ def test_index_html_has_employee_rows_and_holiday_inputs(server_url):
 
 
 def test_population_quality_mode(server_url):
-    """population > 1 + proposer=random: the measured quality-at-wall
-    configuration (BENCH_NOTES.md round 4), served through the same
+    """population > 1 + proposer=random: the quality-at-wall
+    configuration, served through the same
     round-based protocol — the result must carry the full schedule and a
     feasible (hard=0-reachable) score after the round budget."""
     status, res = _req(server_url + "/api/solvers", "POST", {
@@ -307,26 +307,50 @@ def test_population_quality_mode(server_url):
 
 
 def test_population_bounds_rejected(server_url):
-    """Compile-size guard (ADVICE r4): out-of-range / non-numeric
-    population and dense-proposer populations over the measured worker
-    limit are rejected with 400, never attempted."""
+    """Non-positive or non-numeric populations, and populations just past
+    the device-memory bound, are rejected with 400, never attempted."""
+    from constraint_solver_tpu.serve.server import max_population
+
     base = {
         "startDate": "2022-05-09",
         "endDate": "2022-05-15",
         "employees": [{"id": 0}, {"id": 1}],
         "employeeHolidays": [[], []],
     }
-    for bad in ({"population": 500}, {"population": 0},
-                {"population": "lots"},
-                {"population": 128, "proposer": "dense"}):
+    year = {
+        "startDate": "2024-01-01",
+        "endDate": "2024-12-30",
+        "employees": [{"id": e} for e in range(20)],
+        "employeeHolidays": [[] for _ in range(20)],
+    }
+    for payload, bad in (
+        (base, {"population": 0}), (base, {"population": -5}),
+        (base, {"population": "lots"}), (base, {"population": None}),
+        (base, {"population": max_population("dense", 7, 2) + 1}),
+        (year, {"population": max_population("random", 365, 20) + 1,
+                "proposer": "random"}),
+        (year, {"population": max_population("systematic", 365, 20) + 1,
+                "proposer": "systematic"}),
+    ):
         status, res = _req(server_url + "/api/solvers", "POST",
-                           {**base, **bad})
+                           {**payload, **bad})
         assert status == 400, (bad, res)
         assert "error" in res
 
 
+def test_population_bound_covers_measured_lanes():
+    """The bound against the H100 measurements it comes from
+    (bench/serve_memory.py): systematic 365x20 at P=64 took 17.2 GB, past
+    the 16 GiB a session may use; dense 730x40 took 1.68 MB per lane."""
+    from constraint_solver_tpu.serve.server import max_population
+
+    assert 1 <= max_population("systematic", 365, 20) < 64
+    assert max_population("dense", 730, 40) * 1_680_141 <= 16 * 2**30
+    assert max_population("dense", 7, 2) == max_population("dense", 365, 20)
+
+
 def test_noisy_dense_selection_served(server_url):
-    """select_topk/select_temp ride the wasm-shaped payload: the round-5
+    """select_topk/select_temp ride the wasm-shaped payload: the
     noisy-dense quality configuration is servable end-to-end, and bad
     values 400."""
     base = {

@@ -2,9 +2,9 @@
 
 The engine resolves tabu two ways: pick-then-check with a bounded retry
 budget (wide neighborhoods) and the reference-exact [W, T] filter (small
-neighborhoods, auto-selected).  bench/tabu_exhaustion.py measured the retry
-budget exhausting on 59.8% of iterations for the dense scheduling proposer
-— the exact filter removes that divergence entirely.
+neighborhoods, auto-selected).  The retry budget exhausted on 59.8% of
+iterations for the dense scheduling proposer (bench/tabu_exhaustion.py at
+commit 9d1252d) — the exact filter removes that divergence entirely.
 """
 
 import datetime
